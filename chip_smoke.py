@@ -1,0 +1,384 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch/CUDA port (ray_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py [--profile]
+
+Phases; any failure exits non-zero:
+
+  1. the card's name and power limit (nvidia-smi);
+  2. builds the three CUDA kernels from ray_tpu_torch/ops/csrc (nvcc, one
+     process per source, in parallel);
+  3. holds each kernel against its plain PyTorch version on the card:
+     K1 flash_fwd at [8,12,1024,64] bf16 causal (GPT-2 124M's shape), at a
+     ragged [2,4,1000,64] non-causal and at D=128; K2 flash_bwd_dkdv and
+     K3 flash_bwd_dq directly and through autograd against autograd of the
+     plain attention in fp32 on the same bf16 inputs;
+  4. times each kernel at the GPT-2 shape (CUDA events, median), beside
+     its plain version, its bound from the data-sheet peaks, and
+     F.scaled_dot_product_attention as a yardstick (never used by the
+     port);
+  5. checks a tiny GPT-2 training step through the kernels against the
+     same step through the plain attention, then trains gpt2-124m (bf16,
+     fp32 master, adamw_lowmem, batch 8, seq 1024) for 2 + 5 steps with
+     the launch counters reset just before, and checks every loss is
+     finite and every layer launched each kernel once per step;
+  6. prints the kernels as one JSON line, the card again, and last
+     {"ok": true, "device": {...}}.
+
+``--profile`` adds a torch.profiler breakdown of one training step
+(device time by kernel) to chiprun_out/chip_smoke_profile.txt.
+"""
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3 (data sheet)
+
+# Tolerances, as the largest |kernel - reference| over the largest
+# |reference| (bf16 keeps 8 bits, so one rounding is ~4e-3 relative).
+TOL_VS_PLAIN = 1e-2      # kernel vs its plain version, same bf16 inputs
+TOL_VS_FP32 = 2e-2       # kernel vs fp32 autograd of the plain attention
+TOL_LSE = 1e-3           # absolute, fp32 lse (natural log units)
+TOL_E2E_LOSS = 1e-2      # tiny GPT-2: kernels vs plain attention, relative
+TOL_E2E_GRAD = 5e-2      # same, per-parameter gradient, relative to max
+
+
+def smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0]
+
+
+def rel_err(a, ref):
+    a, ref = a.float(), ref.float()
+    return ((a - ref).abs().max() / ref.abs().max().clamp_min(1e-12)).item()
+
+
+def require(ok, what):
+    if not ok:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def time_ms(torch, fn, warmup=3, reps=20):
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def causal_pairs(sq, sk, causal):
+    """(query, key) pairs the mask keeps, absolute positions q >= k."""
+    if not causal:
+        return sq * sk
+    return sum(min(i + 1, sk) for i in range(sq))
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def main(argv):
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port runs on an NVIDIA card",
+              file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.common import param_count
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.train.optim import (adamw_lowmem,
+                                           warmup_cosine_decay_schedule)
+    from ray_tpu_torch.train.step import build_train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    # -- 1. the card --------------------------------------------------------
+    card = smi_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    # -- 2. build -----------------------------------------------------------
+    t0 = time.perf_counter()
+    secs = _build.build()
+    print(f"build: {time.perf_counter() - t0:.3f} s wall; per source "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
+    for name, log in _build.build_logs.items():
+        for line in log.splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+
+    # -- 3. kernels against their plain versions ----------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    B, H, S, D = 8, 12, 1024, 64  # gpt2-124m at batch 8, seq 1024
+    scale = D ** -0.5
+    errs = {}
+    for (b, h, sq, sk, d, causal) in [(B, H, S, S, D, True),
+                                      (2, 4, 1000, 1000, 64, False),
+                                      (2, 4, 512, 512, 128, True)]:
+        q, k, v = rand(b, h, sq, d), rand(b, h, sk, d), rand(b, h, sk, d)
+        o, lse = A.flash_fwd(q, k, v, causal, d ** -0.5)
+        ro, rlse = A.mha_reference_with_lse(q, k, v, causal, d ** -0.5)
+        torch.cuda.synchronize()
+        e_o, e_lse = rel_err(o, ro), (lse - rlse).abs().max().item()
+        print(f"check K1 flash_fwd [{b},{h},{sq},{d}] causal={causal}: "
+              f"o rel {e_o:.3e} (tol {TOL_VS_PLAIN}), lse abs {e_lse:.3e} "
+              f"(tol {TOL_LSE})")
+        require(e_o < TOL_VS_PLAIN and e_lse < TOL_LSE, "K1 vs plain")
+        if (b, sq) == (B, S):
+            errs["flash_fwd"] = (o.float() - ro.float()).abs().max().item()
+
+    q, k, v, do = rand(B, H, S, D), rand(B, H, S, D), rand(B, H, S, D), \
+        rand(B, H, S, D)
+    o, lse = A.flash_fwd(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = A.flash_bwd_dkdv(q, k, v, do, lse, delta, True, scale)
+    dq = A.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
+    rdk, rdv = A.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, True,
+                                          scale)
+    rdq = A.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale)
+    torch.cuda.synchronize()
+    for name, a, r in (("dk", dk, rdk), ("dv", dv, rdv), ("dq", dq, rdq)):
+        e = rel_err(a, r)
+        print(f"check {'K3' if name == 'dq' else 'K2'} {name} vs plain "
+              f"version [{B},{H},{S},{D}]: rel {e:.3e} (tol {TOL_VS_PLAIN})")
+        require(e < TOL_VS_PLAIN, f"{name} vs plain")
+    errs["flash_bwd_dkdv"] = max((dk.float() - rdk.float()).abs().max(),
+                                 (dv.float() - rdv.float()).abs().max()).item()
+    errs["flash_bwd_dq"] = (dq.float() - rdq.float()).abs().max().item()
+
+    for (b, h, sq, d) in [(B, H, S, D), (2, 4, 1000, 64), (2, 4, 512, 128)]:
+        xs = [rand(b, h, sq, d).requires_grad_() for _ in range(3)]
+        g_o = rand(b, h, sq, d)
+        A.flash_attention(*xs, causal=True).backward(g_o)
+        refs = [x.detach().float().requires_grad_() for x in xs]
+        A.mha_reference(*refs, causal=True).backward(g_o.float())
+        torch.cuda.synchronize()
+        for name, x, r in zip(("dq", "dk", "dv"), xs, refs):
+            e = rel_err(x.grad, r.grad)
+            print(f"check autograd {name} [{b},{h},{sq},{d}] vs fp32 plain "
+                  f"autograd: rel {e:.3e} (tol {TOL_VS_FP32})")
+            require(e < TOL_VS_FP32, f"autograd {name}")
+
+    # -- 4. timings at the GPT-2 shape --------------------------------------
+    pairs = B * H * causal_pairs(S, S, True)
+    elem = B * H * S * D * 2  # bytes of one [B,H,S,D] bf16 tensor
+    stat = B * H * S * 4      # bytes of one fp32 [B,H,S] (lse, delta)
+    rows = {
+        "flash_fwd": dict(
+            fn=lambda: A.flash_fwd(q, k, v, True, scale),
+            plain=lambda: A.mha_reference_with_lse(q, k, v, True, scale),
+            library=lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True),
+            flops=4 * D * pairs, nbytes=4 * elem + stat,
+            source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
+            replaces="ray_tpu/ops/attention.py:175 "
+                     "(_flash_fwd_single_pass_kernel) and :95 "
+                     "(_flash_fwd_kernel), via _flash_fwd_pallas:216"),
+        "flash_bwd_dkdv": dict(
+            fn=lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta, True, scale),
+            plain=lambda: A.flash_bwd_dkdv_reference(q, k, v, do, lse, delta,
+                                                     True, scale),
+            library=None, flops=8 * D * pairs, nbytes=6 * elem + 2 * stat,
+            source="ray_tpu_torch/ops/csrc/flash_bwd_dkdv.cu",
+            replaces="ray_tpu/ops/attention.py:272 "
+                     "(_flash_bwd_fused_kernel, dk/dv), via "
+                     "_flash_bwd_pallas:347"),
+        "flash_bwd_dq": dict(
+            fn=lambda: A.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
+            plain=lambda: A.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                   True, scale),
+            library=None, flops=6 * D * pairs, nbytes=5 * elem + 2 * stat,
+            source="ray_tpu_torch/ops/csrc/flash_bwd_dq.cu",
+            replaces="ray_tpu/ops/attention.py:272 "
+                     "(_flash_bwd_fused_kernel, dq), via "
+                     "_flash_bwd_pallas:347"),
+    }
+    timing = {}
+    for name, r in rows.items():
+        ms = time_ms(torch, r["fn"])
+        plain_ms = time_ms(torch, r["plain"], warmup=1, reps=5)
+        lib_ms = (time_ms(torch, r["library"]) if r["library"] else None)
+        b_ms, b_by = bound(r["flops"], r["nbytes"])
+        timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=b_ms, bound_by=b_by)
+        print(f"time {name} [{B},{H},{S},{D}] causal: {ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+              f"({r['flops'] / 1e9:.3f} GFLOP, {r['nbytes'] / 1e6:.3f} MB); "
+              f"{r['flops'] / ms / 1e9:.1f} TFLOP/s; library "
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    # Yardstick for the backward pair: SDPA's backward (dq, dk, dv).
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*xs, is_causal=True)
+    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, xs, do, retain_graph=True))
+    pair_bound, pair_by = bound(10 * D * pairs, 7 * elem + 2 * stat)
+    pair_ms = timing["flash_bwd_dkdv"]["ms"] + timing["flash_bwd_dq"]["ms"]
+    print(f"time K2+K3 {pair_ms:.4f} ms; "
+          f"bound of the backward (5 products) {pair_bound:.4f} ms by "
+          f"{pair_by}; SDPA backward (dq, dk, dv) {sdpa_bwd:.4f} ms")
+    del out, xs
+
+    # -- 5a. tiny GPT-2 step: kernels against the plain attention ------------
+    tiny = dict(vocab_size=512, max_seq=128, num_layers=2, num_heads=2,
+                d_model=128)
+    models = {}
+    for impl in ("flash", "reference"):
+        cfg = gpt2.GPT2Config(**tiny, attention_impl=impl)
+        m = gpt2.GPT2(cfg, torch.Generator().manual_seed(1)).to(dev)
+        m.to(torch.bfloat16)
+        models[impl] = m
+    tok = torch.randint(0, 512, (4, 129), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2))
+    losses = {}
+    for impl, m in models.items():
+        loss = m.loss_fn({"tokens": tok})
+        loss.backward()
+        losses[impl] = loss.item()
+    e_loss = abs(losses["flash"] - losses["reference"]) / abs(
+        losses["reference"])
+    e_grad = max(rel_err(pf.grad, pr.grad) for pf, pr in zip(
+        models["flash"].parameters(), models["reference"].parameters()))
+    print(f"check tiny GPT-2 (bf16, d128, 2 layers, S128): loss kernels "
+          f"{losses['flash']:.6f} plain {losses['reference']:.6f} rel "
+          f"{e_loss:.3e} (tol {TOL_E2E_LOSS}); worst grad rel {e_grad:.3e} "
+          f"(tol {TOL_E2E_GRAD})")
+    require(e_loss < TOL_E2E_LOSS and e_grad < TOL_E2E_GRAD, "tiny GPT-2")
+    del models
+
+    # -- 5b. the main path: gpt2-124m training --------------------------------
+    base = gpt2.CONFIGS["gpt2-124m"]
+    cfg = gpt2.GPT2Config(vocab_size=base.vocab_size, max_seq=1024,
+                          num_layers=base.num_layers,
+                          num_heads=base.num_heads, d_model=base.d_model,
+                          dtype=torch.bfloat16, attention_impl="flash",
+                          remat_policy="none")
+    batch, seq, warm, steps = 8, 1024, 2, 5
+    sched = warmup_cosine_decay_schedule(0.0, 1e-4, 100, 1000,
+                                         end_value=1e-5)
+    init, step_fn = build_train(lambda g: gpt2.GPT2(cfg, g),
+                                lambda m, b: m.loss_fn(b),
+                                optimizer=adamw_lowmem(sched),
+                                master_fp32=True)
+    model, opt_state, step = init(0)
+    print(f"gpt2-124m: {param_count(model)} parameters, batch {batch}, "
+          f"seq {seq}, bf16 + fp32 master, adamw_lowmem")
+    tokens = torch.randint(
+        0, cfg.vocab_size, (batch, seq + 1), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    data = {"tokens": tokens}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    A.reset_launch_counts()
+    losses, norms = [], []
+    for _ in range(warm):
+        model, opt_state, step, met = step_fn(model, opt_state, step, data)
+        losses.append(met["loss"])
+        norms.append(met["grad_norm"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        model, opt_state, step, met = step_fn(model, opt_state, step, data)
+        losses.append(met["loss"])
+        norms.append(met["grad_norm"])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
+
+    losses = [x.item() for x in losses]
+    norms = [x.item() for x in norms]
+    print(f"losses {losses}")
+    print(f"grad norms {norms}")
+    require(all(math.isfinite(x) for x in losses + norms), "finite losses")
+    require(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+            f"first loss {losses[0]} near ln(vocab) = "
+            f"{math.log(cfg.vocab_size):.3f} at random init")
+    n = warm + steps
+    expect = n * cfg.num_layers
+    print(f"launches over {n} steps: {launches} (expect {expect} each: "
+          f"one per layer per step)")
+    require(all(v == expect for v in launches.values()), "launch counts")
+
+    step_ms = elapsed / steps * 1e3
+    tok_s = batch * seq * steps / elapsed
+    mfu = tok_s * gpt2.flops_per_token(cfg, seq) / PEAK_BF16_FLOPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"gpt2-124m train: step {step_ms:.3f} ms, {tok_s:.1f} tokens/s, "
+          f"MFU {100 * mfu:.3f}% of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, "
+          f"peak memory {peak_gb:.3f} GB")
+
+    if "--profile" in argv:
+        profile_step(torch, step_fn, model, opt_state, step, data, root)
+
+    # -- 6. the record --------------------------------------------------------
+    kernels = []
+    for name, r in rows.items():
+        kernels.append(dict(name=name, route="cuda", source=r["source"],
+                            replaces=r["replaces"],
+                            launches=launches[name],
+                            max_abs_err=errs[name], **timing[name]))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def profile_step(torch, step_fn, model, opt_state, step, data, root):
+    """One training step under torch.profiler; device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(model, opt_state, step, data)
+        torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=40)
+    out = os.path.join(root, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "chip_smoke_profile.txt"), "w") as f:
+        f.write(table)
+    print("profile of one step (top 40 by device time) written to "
+          "chiprun_out/chip_smoke_profile.txt")
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

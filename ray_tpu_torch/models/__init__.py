@@ -1,0 +1,1 @@
+"""Models of the port (counterparts of the JAX package's ``models``)."""

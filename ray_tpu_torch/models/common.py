@@ -1,0 +1,63 @@
+"""Model-building primitives: counterpart of the JAX package's
+``models/common.py``.
+
+Parameters live in ``nn.Module``s here; the functions below are the plain
+tensor pieces the models share. Norms and the loss compute in fp32
+whatever the activation dtype, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+
+def truncated_normal(shape, generator: Optional[torch.Generator] = None,
+                     stddev: float = 0.02, dtype=torch.float32,
+                     device=None) -> torch.Tensor:
+    """``stddev`` times a standard normal truncated to [-2, 2], as
+    ``jax.random.truncated_normal(key, -2, 2)`` draws it (other numbers:
+    the generators differ)."""
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (out * stddev).to(dtype)
+
+
+def param_count(module: nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm in fp32 (population variance), returned in x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def cross_entropy_sums(logits, targets, ignore_id: int = -1
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked token CE in fp32 as (nll_sum, token_count), summable across
+    sequence/loss chunks."""
+    logits = logits.float()
+    mask = (targets != ignore_id).float()
+    targets = targets.clamp_min(0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def cross_entropy_loss(logits, targets, ignore_id: int = -1):
+    """Token-level CE in fp32; returns (mean_loss, denom)."""
+    nll_sum, count = cross_entropy_sums(logits, targets, ignore_id)
+    denom = count.clamp_min(1.0)
+    return nll_sum / denom, denom

@@ -1,0 +1,246 @@
+"""GPT-2 family, dense path: counterpart of the JAX package's
+``models/gpt2.py``.
+
+Learned positional embeddings, pre-LN blocks with fused QKV, causal flash
+attention (the port's CUDA kernels on the card), tanh-GELU MLP, and the
+tied LM head with fp32 logits and a chunked cross-entropy. Parameters keep
+the JAX package's names and layouts (``qkv_w`` is ``[d, 3d]``, applied as
+``y @ w``), one ``Block`` per layer where JAX stacks them ``[L, ...]``;
+``convert.py`` carries a JAX pytree across.
+
+Activations run in ``cfg.dtype`` (bf16); layer norms, logits and the loss
+in fp32. Not ported yet, and refused with ``NotImplementedError``: the
+sequence-parallel attention impls, MoE, sharding rules and pp (ROADMAP
+Queue A item 7), and the remat policies other than ``"none"`` (ROADMAP
+Queue A item 3b).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.attention import attention as attention_op
+from .common import cross_entropy_sums, layer_norm, truncated_normal
+
+
+@dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50304  # padded to 128 multiple (50257 -> 50304)
+    max_seq: int = 1024
+    num_layers: int = 12
+    num_heads: int = 12
+    d_model: int = 768
+    d_mlp: Optional[int] = None
+    dtype: torch.dtype = torch.bfloat16
+    attention_impl: str = "auto"  # auto|flash|reference (ring|ulysses: A7)
+    # Only "none" so far; the JAX package's default is "dots" (and its
+    # remat=False reads as "none" here).
+    remat_policy: str = "none"
+    num_experts: int = 0
+
+    @property
+    def mlp_dim(self) -> int:
+        return self.d_mlp or 4 * self.d_model
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.num_heads
+
+    def num_params(self) -> int:
+        wpe = self.max_seq * self.d_model
+        wte = self.vocab_size * self.d_model
+        per_layer = (
+            4 * self.d_model * self.d_model  # qkv + proj
+            + 2 * self.d_model * self.mlp_dim  # mlp in/out
+            + 2 * self.d_model * 2  # lns
+            + 4 * self.d_model + self.mlp_dim + self.d_model  # biases(ish)
+        )
+        return wte + wpe + self.num_layers * per_layer + 2 * self.d_model
+
+
+# Published GPT-2 sizes (vocab padded for lane alignment).
+CONFIGS: Dict[str, GPT2Config] = {
+    "gpt2-124m": GPT2Config(num_layers=12, num_heads=12, d_model=768),
+    "gpt2-355m": GPT2Config(num_layers=24, num_heads=16, d_model=1024),
+    "gpt2-774m": GPT2Config(num_layers=36, num_heads=20, d_model=1280),
+    "gpt2-1.5b": GPT2Config(num_layers=48, num_heads=25, d_model=1600),
+}
+
+
+def _check_supported(cfg: GPT2Config) -> None:
+    if cfg.attention_impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attention_impl={cfg.attention_impl!r} needs sequence "
+            "parallelism: ROADMAP Queue A item 7 (parallel/ on "
+            "torch.distributed)")
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            "MoE blocks need expert parallelism: ROADMAP Queue A item 7")
+    if cfg.remat_policy != "none":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: the remat policies are "
+            "ROADMAP Queue A item 3b; use remat_policy='none'")
+
+
+class Block(nn.Module):
+    """One pre-LN transformer block (``_block`` in the JAX package)."""
+
+    def __init__(self, cfg: GPT2Config, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        d, m = cfg.d_model, cfg.mlp_dim
+        proj_std = 0.02 / math.sqrt(2 * cfg.num_layers)
+        tn = lambda shape, std=0.02: nn.Parameter(
+            truncated_normal(shape, generator, stddev=std))
+        self.ln1_scale = nn.Parameter(torch.ones(d))
+        self.ln1_bias = nn.Parameter(torch.zeros(d))
+        self.qkv_w = tn((d, 3 * d))
+        self.qkv_b = nn.Parameter(torch.zeros(3 * d))
+        self.proj_w = tn((d, d), proj_std)
+        self.proj_b = nn.Parameter(torch.zeros(d))
+        self.ln2_scale = nn.Parameter(torch.ones(d))
+        self.ln2_bias = nn.Parameter(torch.zeros(d))
+        self.mlp_in_w = tn((d, m))
+        self.mlp_in_b = nn.Parameter(torch.zeros(m))
+        self.mlp_out_w = tn((m, d), proj_std)
+        self.mlp_out_b = nn.Parameter(torch.zeros(d))
+
+    @staticmethod
+    def _dense(x, w, b):
+        return F.linear(x, w.to(x.dtype).t(), b.to(x.dtype))
+
+    def forward(self, x):
+        b, s, d = x.shape
+        h, hd = self.cfg.num_heads, self.cfg.head_dim
+
+        y = layer_norm(x, self.ln1_scale, self.ln1_bias)
+        qkv = self._dense(y, self.qkv_w, self.qkv_b)
+
+        def heads(t):  # [B,S,D] -> [B,H,S,hd], contiguous for the kernels
+            return t.reshape(b, s, h, hd).transpose(1, 2).contiguous()
+
+        q, k, v = (heads(t) for t in qkv.split(d, dim=-1))
+        o = attention_op(q, k, v, causal=True, impl=self.cfg.attention_impl)
+        o = o.transpose(1, 2).reshape(b, s, d)
+        x = x + self._dense(o, self.proj_w, self.proj_b)
+
+        y = layer_norm(x, self.ln2_scale, self.ln2_bias)
+        hdn = F.gelu(self._dense(y, self.mlp_in_w, self.mlp_in_b),
+                     approximate="tanh")
+        return x + self._dense(hdn, self.mlp_out_w, self.mlp_out_b)
+
+
+class _LMHead(torch.autograd.Function):
+    """fp32 logits ``x @ w^T`` from 16-bit operands, as the JAX package's
+    ``dot_general(..., preferred_element_type=fp32)``. On CUDA one GEMM
+    writes fp32 directly; the backward takes the cotangent in the operand
+    dtype for the two tensor-core GEMMs."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda and x.dtype != torch.float32:
+            return torch.mm(x, w.t(), out_dtype=torch.float32)
+        return x.float() @ w.float().t()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w.to(x.dtype), (g.t() @ x).to(w.dtype)
+
+
+def lm_logits(x, w):
+    """Tied LM head: fp32 logits of ``x [..., d]`` against ``w [V, d]``."""
+    shape = x.shape[:-1]
+    return _LMHead.apply(x.reshape(-1, x.shape[-1]), w).reshape(*shape, -1)
+
+
+class GPT2(nn.Module):
+    """GPT-2 LM. Parameters are created fp32 on the CPU from ``generator``
+    (move the module with ``.to(device)``)."""
+
+    def __init__(self, cfg: GPT2Config,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        d = cfg.d_model
+        self.wte = nn.Parameter(
+            truncated_normal((cfg.vocab_size, d), generator))
+        self.wpe = nn.Parameter(
+            truncated_normal((cfg.max_seq, d), generator, stddev=0.01))
+        self.blocks = nn.ModuleList(Block(cfg, generator)
+                                    for _ in range(cfg.num_layers))
+        self.lnf_scale = nn.Parameter(torch.ones(d))
+        self.lnf_bias = nn.Parameter(torch.zeros(d))
+
+    def forward_features(self, tokens, rules=None):
+        """tokens [B, S] -> final hidden states [B, S, D] (pre LM head)."""
+        if rules is not None:
+            raise NotImplementedError(
+                "sharding rules (and pp through them) are ROADMAP Queue A "
+                "item 7; the port runs on one device")
+        s = tokens.shape[1]
+        dt = self.cfg.dtype
+        x = F.embedding(tokens, self.wte).to(dt) + self.wpe[:s].to(dt)[None]
+        for block in self.blocks:
+            x = block(x)
+        return layer_norm(x, self.lnf_scale, self.lnf_bias)
+
+    def forward(self, tokens, rules=None):
+        """tokens [B, S] -> fp32 logits [B, S, vocab]."""
+        x = self.forward_features(tokens, rules)
+        return lm_logits(x, self.wte.to(self.cfg.dtype))
+
+    def loss_fn(self, batch, rules=None, loss_chunk: int = 4096):
+        """batch: {"tokens": [B, S+1]} -> next-token CE loss.
+
+        The LM head and CE run in token chunks, each under
+        ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``):
+        only one chunk's fp32 logits are live, and the backward recomputes
+        them. Padding to whole chunks uses ignore_id -1.
+        """
+        tokens = batch["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        x = self.forward_features(inputs, rules)
+        d = x.shape[-1]
+        wte = self.wte.to(self.cfg.dtype)
+
+        xf = x.reshape(-1, d)
+        tf = targets.reshape(-1)
+        n = xf.shape[0]
+        # Even chunks rounded to 256 tokens, as the JAX package cuts them.
+        n_chunks = max(1, -(-n // loss_chunk))
+        per_chunk = -(-n // n_chunks)
+        chunk = min(n, -(-per_chunk // 256) * 256) if n >= 256 else n
+        pad = (-n) % chunk
+        if pad:
+            xf = F.pad(xf, (0, 0, 0, pad))
+            tf = F.pad(tf, (0, pad), value=-1)  # ignore_id
+
+        nll_sum = torch.zeros((), device=x.device)
+        denom = torch.zeros((), device=x.device)
+        for xi, ti in zip(xf.split(chunk), tf.split(chunk)):
+            nll, count = checkpoint(_chunk_loss, xi, wte, ti,
+                                    use_reentrant=False)
+            nll_sum = nll_sum + nll
+            denom = denom + count
+        return nll_sum / denom.clamp_min(1.0)
+
+
+def _chunk_loss(xi, wte, ti):
+    return cross_entropy_sums(lm_logits(xi, wte), ti)
+
+
+def flops_per_token(cfg: GPT2Config, seq: int) -> float:
+    """Training FLOPs/token: 6N + attention term (PaLM appendix formula)."""
+    attn = 12 * cfg.num_layers * cfg.d_model * seq
+    return 6.0 * cfg.num_params() + attn

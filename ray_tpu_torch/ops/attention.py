@@ -1,0 +1,271 @@
+"""Attention ops: hand-written CUDA flash attention (H100) + plain versions.
+
+Counterpart of the JAX package's ``ops/attention.py``. Shapes: q
+``[B, H, Sq, D]``, k/v ``[B, H, Sk, D]``; lse is fp32 ``[B, H, Sq]``.
+
+Three kernels, each with a plain PyTorch version beside it and a launch
+count (``<wrapper>.launches``):
+
+  - ``flash_fwd`` (csrc/flash_fwd.cu): o and lse; plain version
+    ``mha_reference_with_lse``;
+  - ``flash_bwd_dkdv`` (csrc/flash_bwd_dkdv.cu): dk and dv; plain version
+    ``flash_bwd_dkdv_reference``;
+  - ``flash_bwd_dq`` (csrc/flash_bwd_dq.cu): dq; plain version
+    ``flash_bwd_dq_reference``.
+
+A wrapper runs the plain version only for tensors on the CPU. For any
+other tensor it launches its kernel or raises: on a dtype other than
+bf16/fp16, a head_dim other than 64/128, non-contiguous or misaligned
+input, or a kernel that cannot be built. The kernels mask ragged Sq and
+Sk themselves, so every such shape goes to them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+_NEG_INF = -1e30
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path, and what the kernels are held against).
+# ---------------------------------------------------------------------------
+
+def _scores(q, k, causal: bool, scale: float, q_offset: int = 0):
+    """fp32 q k^T * scale with the causal mask at absolute positions."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        sq, sk = q.shape[2], k.shape[2]
+        q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        k_pos = torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(q_pos < k_pos, _NEG_INF)
+    return s
+
+
+def mha_reference_with_lse(q, k, v, causal: bool = True,
+                           scale: Optional[float] = None,
+                           q_offset: int = 0):
+    """Reference attention returning (o, lse [B,H,Sq] fp32). ``q_offset``
+    shifts causal positions (ring steps). Fully masked rows produce
+    lse ~= -1e30 (finite)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _scores(q, k, causal, scale, q_offset)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", (p / l).to(v.dtype).float(),
+                     v.float()).to(q.dtype)
+    return o, (m + torch.log(l))[..., 0]
+
+
+def mha_reference(q, k, v, causal: bool = True,
+                  scale: Optional[float] = None, q_offset: int = 0):
+    """Plain attention; ``q_offset`` shifts causal positions (ring steps)."""
+    return mha_reference_with_lse(q, k, v, causal=causal, scale=scale,
+                                  q_offset=q_offset)[0]
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """P = exp(s - lse) and dS = P (dO v^T - delta) scale in fp32, as the
+    backward kernels recompute them tile by tile."""
+    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    return p, ds
+
+
+def flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal: bool,
+                             scale: float
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2: (dk, dv), P and dS rounded to the operand
+    type before their products, fp32 accumulation."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool,
+                           scale: float) -> torch.Tensor:
+    """Plain version of K3: dq = dS k (dS rounded to the operand type)."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(q.dtype).float(), k.float())
+    return dq.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(q, k, v, do=None) -> None:
+    """Raises on what the kernels do not take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash kernels run on CUDA, got {q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"flash kernels take bf16 or fp16, got {q.dtype}")
+    if q.ndim != 4 or q.shape[-1] not in (64, 128):
+        raise ValueError(f"flash kernels take [B,H,S,D] with D 64 or 128, "
+                         f"got {tuple(q.shape)}")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if do is not None and do.shape != q.shape:
+        raise ValueError(f"dO {tuple(do.shape)} does not match q")
+    for t in (q, k, v) if do is None else (q, k, v, do):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError("flash kernel operands differ in dtype/device")
+        if not t.is_contiguous():
+            raise ValueError("flash kernels take contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError("flash kernels need 16-byte aligned tensors")
+
+
+def _kernel(name: str, argtypes, *tensors):
+    """The C entry point of kernel ``name`` (built on first use) after the
+    operands are checked."""
+    fn = getattr(_build.load(name, argtypes), name)
+    _check(*tensors)
+    return fn
+
+
+def _launch(fn, *args) -> None:
+    with torch.cuda.device(args[0].device):
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args], _stream(args[0]))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _stats(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """lse or delta as the kernels read them: contiguous fp32 [B,H,Sq]."""
+    if x.dtype != torch.float32 or x.shape != q.shape[:3]:
+        raise ValueError(f"expected fp32 {tuple(q.shape[:3])}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    return x.contiguous()
+
+
+def flash_fwd(q, k, v, causal: bool, scale: float):
+    """K1: (o, lse). Plain version for CPU tensors, the kernel otherwise."""
+    if q.device.type == "cpu":
+        return mha_reference_with_lse(q, k, v, causal=causal, scale=scale)
+    fn = _kernel("flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _I, _P], q, k, v)
+    b, h, sq, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
+    _launch(fn, q, k, v, o, lse, b, h, sq, k.shape[2], d, int(causal),
+            float(scale), int(q.dtype == torch.bfloat16))
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """K2: (dk, dv). Plain version for CPU tensors, the kernel otherwise."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal,
+                                        scale)
+    fn = _kernel("flash_bwd_dkdv", [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+                 q, k, v, do)
+    b, h, sq, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(fn, q, k, v, do, _stats(lse, q), _stats(delta, q), dk, dv, b, h,
+            sq, k.shape[2], d, int(causal), float(scale),
+            int(q.dtype == torch.bfloat16))
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """K3: dq. Plain version for CPU tensors, the kernel otherwise."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
+    fn = _kernel("flash_bwd_dq", [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+                 q, k, v, do)
+    b, h, sq, d = q.shape
+    dq = torch.empty_like(q)
+    _launch(fn, q, k, v, do, _stats(lse, q), _stats(delta, q), dq, b, h, sq,
+            k.shape[2], d, int(causal), float(scale),
+            int(q.dtype == torch.bfloat16))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_fwd.launches = 0
+flash_bwd_dkdv.launches = 0
+flash_bwd_dq.launches = 0
+KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dkdv, flash_bwd_dq)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Differentiable flash attention: kernel forward, kernel backward.
+# ---------------------------------------------------------------------------
+
+class _Flash(torch.autograd.Function):
+    """Counterpart of ``_flash`` with ``_flash_fwd_rule``/``_flash_bwd_rule``:
+    saves q, k, v, o and lse; the backward computes delta = rowsum(dO o)
+    in fp32 and runs K2 and K3."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        o, lse = flash_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1)
+        dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, ctx.causal,
+                                ctx.scale)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    scale: Optional[float] = None):
+    """Flash attention, differentiable. q/k/v: [batch, heads, seq, dim]."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _Flash.apply(q, k, v, causal, scale)
+
+
+def attention(q, k, v, causal: bool = True, impl: str = "auto",
+              scale: Optional[float] = None):
+    """Dispatch: 'flash' | 'auto' (the kernels for CUDA tensors, their
+    plain versions on the CPU) | 'reference' (plain autograd attention)."""
+    if impl == "reference":
+        return mha_reference(q, k, v, causal=causal, scale=scale)
+    if impl not in ("auto", "flash"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+def attention_with_lse(q, k, v, causal: bool = True,
+                       scale: Optional[float] = None, impl: str = "auto"):
+    """Forward-only attention returning (o, lse)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if impl == "reference":
+        return mha_reference_with_lse(q, k, v, causal=causal, scale=scale)
+    if impl not in ("auto", "flash"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return flash_fwd(q, k, v, causal, scale)

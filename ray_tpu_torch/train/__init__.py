@@ -1,0 +1,1 @@
+"""Training of the port (counterparts of the JAX package's ``train``)."""

@@ -1,0 +1,223 @@
+"""Attention of the port (ray_tpu_torch.ops.attention) against the JAX
+package's Pallas kernels, run in interpret mode on the CPU.
+
+Inputs are made with numpy from a seed and handed to both packages. On
+the CPU the port's kernel wrappers run their plain versions, so this
+holds those plain versions (and the autograd wiring around them) to the
+Pallas forward bodies and the fused backward body. Everything is fp32:
+the tolerance, 2e-5 absolute on values of order one, only absorbs
+summation order.
+
+The CUDA kernels themselves are held to the same plain versions on the
+card, by ``chip_smoke.py`` and by ``tests/test_torch_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops import attention as jattn
+from ray_tpu_torch import device as tdevice
+from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import attention as tattn
+
+ATOL = 2e-5
+
+
+def _inputs(b, h, sq, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, h, sk, d)).astype(np.float32)
+    v = rng.standard_normal((b, h, sk, d)).astype(np.float32)
+    do = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    return q, k, v, do
+
+
+def _close(actual, desired, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(actual, np.float32),
+                               np.asarray(desired, np.float32),
+                               rtol=0, atol=atol)
+
+
+# (b, h, sq, sk, d, causal, block): block is the Pallas tiling.
+CASES = [
+    (2, 2, 128, 128, 64, True, 64),
+    (2, 2, 128, 128, 64, False, 64),
+    (1, 3, 64, 128, 32, False, 32),
+    (1, 2, 128, 64, 32, True, 32),
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,block", CASES)
+def test_forward_matches_pallas(b, h, sq, sk, d, causal, block):
+    q, k, v, _ = _inputs(b, h, sq, sk, d)
+    scale = d ** -0.5
+    o_j, lse_j = jattn._flash_fwd_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, scale,
+        block, block, interpret=True)
+    o_t, lse_t = tattn.flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), causal, scale)
+    _close(o_t, o_j)
+    _close(lse_t, lse_j)
+    assert lse_t.dtype == torch.float32 and lse_t.shape == (b, h, sq)
+
+
+def test_online_forward_body_matches(monkeypatch):
+    """Sk above _SINGLE_PASS_MAX_SK runs the online-softmax body
+    (_flash_fwd_kernel): lower the threshold so a small Sk takes it."""
+    monkeypatch.setattr(jattn, "_SINGLE_PASS_MAX_SK", 64)
+    for causal in (True, False):
+        q, k, v, _ = _inputs(1, 2, 128, 128, 32, seed=3)
+        o_j, lse_j = jattn._flash_fwd_pallas(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal,
+            32 ** -0.5, 32, 32, interpret=True)
+        o_t, lse_t = tattn.attention_with_lse(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            causal=causal)
+        _close(o_t, o_j)
+        _close(lse_t, lse_j)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,block", CASES)
+def test_backward_matches_pallas(b, h, sq, sk, d, causal, block):
+    """dq, dk, dv through the port's autograd.Function against jax.grad
+    of ray_tpu's custom-VJP flash attention (Pallas backward body)."""
+    q, k, v, do = _inputs(b, h, sq, sk, d, seed=1)
+
+    def f(q_, k_, v_):
+        o = jattn.flash_attention(q_, k_, v_, causal=causal, block_q=block,
+                                  block_k=block)
+        return jnp.sum(o * jnp.asarray(do))
+
+    grads_j = jax.grad(f, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    o = tattn.attention(*ts, causal=causal, impl="flash")
+    (o * torch.from_numpy(do)).sum().backward()
+    for t, gj in zip(ts, grads_j):
+        _close(t.grad, gj)
+
+
+def test_backward_plain_versions_match_pallas_body():
+    """The plain versions of K2 and K3, called with the saved lse and
+    delta, against _flash_bwd_pallas in interpret mode."""
+    q, k, v, do = _inputs(1, 2, 128, 128, 64, seed=2)
+    scale = 0.125
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    o, lse = jattn._flash_fwd_pallas(jq, jk, jv, True, scale, 64, 64,
+                                     interpret=True)
+    dq_j, dk_j, dv_j = jattn._flash_bwd_pallas(
+        jq, jk, jv, o, lse, jdo, True, scale, 64, 64, interpret=True)
+    tq, tk, tv, tdo, to, tlse = (torch.from_numpy(np.array(x))
+                                 for x in (q, k, v, do, o, lse))
+    delta = (tdo * to).sum(-1)
+    dk_t, dv_t = tattn.flash_bwd_dkdv(tq, tk, tv, tdo, tlse, delta, True,
+                                      scale)
+    dq_t = tattn.flash_bwd_dq(tq, tk, tv, tdo, tlse, delta, True, scale)
+    _close(dq_t, dq_j)
+    _close(dk_t, dk_j)
+    _close(dv_t, dv_j)
+
+
+def test_reference_q_offset_and_masked_rows():
+    """q_offset shifts causal positions; rows that see no key keep a
+    finite lse near -1e30, as in ray_tpu's reference."""
+    q, k, v, _ = _inputs(1, 2, 16, 16, 8)
+    for off in (-4, 0, 5):
+        o_j, lse_j = jattn.mha_reference_with_lse(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+            q_offset=off)
+        o_t, lse_t = tattn.mha_reference_with_lse(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            causal=True, q_offset=off)
+        _close(o_t, o_j)
+        assert torch.isfinite(lse_t).all()
+        np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j),
+                                   rtol=1e-6, atol=ATOL)
+        if off < 0:  # rows 0..-off-1 see no key
+            assert float(lse_t[..., :-off].max()) < -1e29
+
+
+def test_reference_impl_matches_flash_path():
+    q, k, v, _ = _inputs(1, 2, 32, 32, 16)
+    ts = [torch.from_numpy(x) for x in (q, k, v)]
+    _close(tattn.attention(*ts, impl="reference"),
+           tattn.attention(*ts, impl="auto"))
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        tattn.attention(*ts, impl="ring")
+
+
+def test_cpu_path_counts_no_launches():
+    tattn.reset_launch_counts()
+    q, k, v, _ = _inputs(1, 1, 8, 8, 64)
+    ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    tattn.flash_attention(*ts).sum().backward()
+    assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [0, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# Device choice and the absence of a fallback
+# ---------------------------------------------------------------------------
+
+def test_default_device_is_cuda_or_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdevice.default_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdevice.default_device("cuda")
+    assert tdevice.default_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tdevice.default_device() == torch.device("cuda")
+
+
+def test_train_entry_point_refuses_missing_cuda(monkeypatch):
+    from ray_tpu_torch.train.step import build_train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_train(lambda g: torch.nn.Linear(2, 2), lambda m, b: 0)
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_kernel_path_raises_when_build_fails(monkeypatch, tmp_path, which):
+    """A non-CPU tensor goes to the kernel; when the kernel cannot be
+    built the call raises and never falls back to the plain version."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found (test)")
+
+    monkeypatch.setattr(_build, "nvcc", no_nvcc)
+    tattn.reset_launch_counts()
+    q = torch.empty((1, 2, 8, 64), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        if which == "fwd":
+            tattn.flash_attention(q, q, q)
+        else:
+            lse = torch.empty((1, 2, 8), device="meta")
+            tattn.flash_bwd_dq(q, q, q, q, lse, lse, True, 0.125)
+    assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [0, 0, 0]
+
+
+def test_kernel_path_raises_when_loader_fails(monkeypatch):
+    def broken(name, argtypes):
+        raise RuntimeError(f"cannot load {name}")
+
+    monkeypatch.setattr(_build, "load", broken)
+    q = torch.empty((1, 2, 8, 64), dtype=torch.bfloat16, device="meta")
+    lse = torch.empty((1, 2, 8), device="meta")
+    with pytest.raises(RuntimeError, match="cannot load flash_fwd"):
+        tattn.attention_with_lse(q, q, q)
+    with pytest.raises(RuntimeError, match="cannot load flash_bwd_dkdv"):
+        tattn.flash_bwd_dkdv(q, q, q, q, lse, lse, True, 0.125)
+
+
+def test_build_names_every_kernel_source():
+    assert set(_build.KERNELS) == {
+        p.stem for p in _build.CSRC.glob("*.cu")}
+    paths = {_build._library_path(n) for n in _build.KERNELS}
+    assert len(paths) == len(_build.KERNELS)
+    assert all(p.parent == _build.BUILD_DIR for p in paths)

@@ -1,0 +1,50 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA card and skips without one (marker
+``cuda``). The file imports neither JAX nor ``ray_tpu``, so it also runs
+on a machine that has only PyTorch:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import pytest
+import torch
+
+from ray_tpu_torch.ops import attention as tattn
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,d,causal", [(256, 256, 64, True),
+                                            (200, 333, 64, False),
+                                            (128, 128, 128, True)])
+def test_cuda_kernels_match_plain(cuda, sq, sk, d, causal):
+    """bf16 kernels against the plain versions on the same bf16 inputs;
+    2e-2 of the largest entry (bf16 keeps 8 bits)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    mk = lambda s: torch.randn((2, 3, s, d), generator=g, device=cuda,
+                               dtype=torch.bfloat16)
+    q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
+    scale = d ** -0.5
+    tattn.reset_launch_counts()
+    o, lse = tattn.flash_fwd(q, k, v, causal, scale)
+    ro, rlse = tattn.mha_reference_with_lse(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = tattn.flash_bwd_dkdv(q, k, v, do, lse, delta, causal, scale)
+    dq = tattn.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    rdk, rdv = tattn.flash_bwd_dkdv_reference(q, k, v, do, lse, delta,
+                                              causal, scale)
+    rdq = tattn.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                       scale)
+    torch.cuda.synchronize()
+    for a, r in ((o, ro), (dq, rdq), (dk, rdk), (dv, rdv)):
+        err = (a.float() - r.float()).abs().max() / r.float().abs().max()
+        assert err < 2e-2
+    assert (lse - rlse).abs().max() < 1e-4
+    assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [1, 1, 1]
