@@ -8,15 +8,19 @@ Phases; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. builds the three CUDA kernels from ray_tpu_torch/ops/csrc (nvcc, one
      process per source, in parallel);
-  3. holds each kernel against its plain PyTorch version on the card:
-     K1 flash_fwd at [8,12,1024,64] bf16 causal (GPT-2 124M's shape), at a
-     ragged [2,4,1000,64] non-causal and at D=128; K2 flash_bwd_dkdv and
-     K3 flash_bwd_dq directly and through autograd against autograd of the
-     plain attention in fp32 on the same bf16 inputs;
-  4. times each kernel at the GPT-2 shape (CUDA events, median), beside
-     its plain version, its bound from the data-sheet peaks, and
-     F.scaled_dot_product_attention as a yardstick (never used by the
-     port);
+  3. holds each kernel against its plain PyTorch version on the card, K1
+     flash_fwd, K2 flash_bwd_dkdv and K3 flash_bwd_dq on the same inputs:
+     [8,12,1024,64] bf16 causal (GPT-2 124M's shape), fp16, non-causal
+     ragged, causal Sq < Sk and Sq > Sk, D 128 (bf16 causal, and fp16
+     non-causal with Sq != Sk), and a row length of one tile plus one;
+     then all three through autograd against fp32 autograd of the plain
+     attention;
+  4. after a second of warm-up, times each kernel at the GPT-2 shape
+     (device time per call, from torch.profiler) beside its plain
+     version, its bound from the data-sheet peaks, and
+     F.scaled_dot_product_attention's forward and backward as yardsticks
+     (never used by the port), and prints K1 / SDPA forward and K2 / SDPA
+     backward;
   5. checks a tiny GPT-2 training step through the kernels against the
      same step through the plain attention, then trains gpt2-124m (bf16,
      fp32 master, adamw_lowmem, batch 8, seq 1024) for 2 + 5 steps with
@@ -32,7 +36,7 @@ Phases; any failure exits non-zero:
 import json
 import math
 import os
-import statistics
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +52,11 @@ TOL_LSE = 1e-3           # absolute, fp32 lse (natural log units)
 TOL_E2E_LOSS = 1e-2      # tiny GPT-2: kernels vs plain attention, relative
 TOL_E2E_GRAD = 5e-2      # same, per-parameter gradient, relative to max
 
+# How each kernel is built: TMA loads under mbarriers feeding wgmma, or
+# the first port's synchronous loads feeding mma.sync.
+DESIGN = {"flash_fwd": "wgmma_tma", "flash_bwd_dkdv": "wgmma_tma",
+          "flash_bwd_dq": "mma_sync"}
+
 
 def smi_line():
     out = subprocess.run(
@@ -55,6 +64,35 @@ def smi_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
     return out[0]
+
+
+def ptxas_report(log):
+    """Registers, static shared memory and spills of each kernel
+    instantiation, from ``nvcc -Xptxas -v``; keyed by type and head dim."""
+    out, inst = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            ty = "bf16" if "Bf16" in name or "BF16" in name else "fp16"
+            d = re.search(r"ELi(\d+)E", name)
+            inst = f"{ty}_d{d.group(1) if d else '?'}"
+            out[inst] = dict(registers=None, smem_static=0, spill_stores=0,
+                             spill_loads=0)
+            continue
+        if inst is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[inst]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[inst]["smem_static"] = int(sm.group(1)) if sm else 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[inst]["spill_stores"] = int(m.group(1))
+            out[inst]["spill_loads"] = int(m.group(2))
+    return out
 
 
 def rel_err(a, ref):
@@ -68,20 +106,25 @@ def require(ok, what):
 
 
 def time_ms(torch, fn, warmup=3, reps=20):
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+    """Device time of one call of ``fn`` in ms: the durations of the
+    kernels and copies it puts on the card (torch.profiler), summed over
+    ``reps`` calls and averaged. Host time between launches is left out:
+    CUDA events around each call would time the host wherever it is slower
+    than the kernels. Fails if the profiler sees no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    require(us > 0, "torch.profiler saw no device activity to time")
+    return us / reps / 1e3
 
 
 def causal_pairs(sq, sk, causal):
@@ -132,55 +175,68 @@ def main(argv):
     secs = _build.build()
     print(f"build: {time.perf_counter() - t0:.3f} s wall; per source "
           + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
+    ptxas = {name: ptxas_report(log)
+             for name, log in _build.build_logs.items()}
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+            if "warning" in line.lower() or "Performance Loss" in line:
+                print(f"nvcc {name}: {line.strip()[:160]}")
+        for inst, r in ptxas[name].items():
+            print(f"ptxas {name} {inst}: {r['registers']} registers, "
+                  f"{r['smem_static']} bytes static smem (+ dynamic "
+                  f"tiles), spill stores {r['spill_stores']} loads "
+                  f"{r['spill_loads']}")
 
     # -- 3. kernels against their plain versions ----------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def rand(*shape):
-        return torch.randn(shape, generator=gen, device=dev,
-                           dtype=torch.bfloat16)
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
     B, H, S, D = 8, 12, 1024, 64  # gpt2-124m at batch 8, seq 1024
     scale = D ** -0.5
     errs = {}
-    for (b, h, sq, sk, d, causal) in [(B, H, S, S, D, True),
-                                      (2, 4, 1000, 1000, 64, False),
-                                      (2, 4, 512, 512, 128, True)]:
-        q, k, v = rand(b, h, sq, d), rand(b, h, sk, d), rand(b, h, sk, d)
-        o, lse = A.flash_fwd(q, k, v, causal, d ** -0.5)
-        ro, rlse = A.mha_reference_with_lse(q, k, v, causal, d ** -0.5)
+    # (b, h, sq, sk, d, causal, dtype): the GPT-2 shape first, then fp16,
+    # non-causal ragged, causal Sq < Sk and Sq > Sk, D 128, a row length
+    # of one tile plus one, and an Sq whose lse rows need padding for TMA.
+    bf, fp = torch.bfloat16, torch.float16
+    for (b, h, sq, sk, d, causal, dt) in [
+            (B, H, S, S, D, True, bf), (2, 4, 1024, 1024, 64, True, fp),
+            (2, 4, 1000, 1000, 64, False, bf), (2, 4, 384, 1024, 64, True, bf),
+            (2, 4, 1024, 384, 64, True, bf), (2, 4, 512, 512, 128, True, bf),
+            (2, 4, 333, 200, 128, False, fp), (1, 2, 129, 129, 64, True, bf)]:
+        q, k, v = rand(b, h, sq, d, dtype=dt), rand(b, h, sk, d, dtype=dt), \
+            rand(b, h, sk, d, dtype=dt)
+        do = rand(b, h, sq, d, dtype=dt)
+        sc = d ** -0.5
+        o, lse = A.flash_fwd(q, k, v, causal, sc)
+        ro, rlse = A.mha_reference_with_lse(q, k, v, causal, sc)
+        delta = (do.float() * o.float()).sum(-1)
+        dk, dv = A.flash_bwd_dkdv(q, k, v, do, lse, delta, causal, sc)
+        dq = A.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc)
+        rdk, rdv = A.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal,
+                                              sc)
+        rdq = A.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, sc)
         torch.cuda.synchronize()
-        e_o, e_lse = rel_err(o, ro), (lse - rlse).abs().max().item()
-        print(f"check K1 flash_fwd [{b},{h},{sq},{d}] causal={causal}: "
-              f"o rel {e_o:.3e} (tol {TOL_VS_PLAIN}), lse abs {e_lse:.3e} "
-              f"(tol {TOL_LSE})")
-        require(e_o < TOL_VS_PLAIN and e_lse < TOL_LSE, "K1 vs plain")
+        e_lse = (lse - rlse).abs().max().item()
+        e = {n: rel_err(a, r) for n, a, r in (("o", o, ro), ("dk", dk, rdk),
+                                              ("dv", dv, rdv),
+                                              ("dq", dq, rdq))}
+        print(f"check [{b},{h},{sq},{sk},{d}] causal={causal} "
+              f"{str(dt).split('.')[-1]}: K1 o {e['o']:.3e} lse abs "
+              f"{e_lse:.3e}; K2 dk {e['dk']:.3e} dv {e['dv']:.3e}; K3 dq "
+              f"{e['dq']:.3e} (rel tol {TOL_VS_PLAIN}, lse tol {TOL_LSE})")
+        require(e_lse < TOL_LSE and max(e.values()) < TOL_VS_PLAIN,
+                f"kernels vs plain at [{b},{h},{sq},{sk},{d}] causal={causal}"
+                f" {dt}")
         if (b, sq) == (B, S):
             errs["flash_fwd"] = (o.float() - ro.float()).abs().max().item()
-
-    q, k, v, do = rand(B, H, S, D), rand(B, H, S, D), rand(B, H, S, D), \
-        rand(B, H, S, D)
-    o, lse = A.flash_fwd(q, k, v, True, scale)
-    delta = (do.float() * o.float()).sum(-1)
-    dk, dv = A.flash_bwd_dkdv(q, k, v, do, lse, delta, True, scale)
-    dq = A.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
-    rdk, rdv = A.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, True,
-                                          scale)
-    rdq = A.flash_bwd_dq_reference(q, k, v, do, lse, delta, True, scale)
-    torch.cuda.synchronize()
-    for name, a, r in (("dk", dk, rdk), ("dv", dv, rdv), ("dq", dq, rdq)):
-        e = rel_err(a, r)
-        print(f"check {'K3' if name == 'dq' else 'K2'} {name} vs plain "
-              f"version [{B},{H},{S},{D}]: rel {e:.3e} (tol {TOL_VS_PLAIN})")
-        require(e < TOL_VS_PLAIN, f"{name} vs plain")
-    errs["flash_bwd_dkdv"] = max((dk.float() - rdk.float()).abs().max(),
-                                 (dv.float() - rdv.float()).abs().max()).item()
-    errs["flash_bwd_dq"] = (dq.float() - rdq.float()).abs().max().item()
+            errs["flash_bwd_dkdv"] = max(
+                (dk.float() - rdk.float()).abs().max(),
+                (dv.float() - rdv.float()).abs().max()).item()
+            errs["flash_bwd_dq"] = (
+                dq.float() - rdq.float()).abs().max().item()
+            slice_inputs = (q, k, v, do, lse, delta)
 
     for (b, h, sq, d) in [(B, H, S, D), (2, 4, 1000, 64), (2, 4, 512, 128)]:
         xs = [rand(b, h, sq, d).requires_grad_() for _ in range(3)]
@@ -194,8 +250,17 @@ def main(argv):
             print(f"check autograd {name} [{b},{h},{sq},{d}] vs fp32 plain "
                   f"autograd: rel {e:.3e} (tol {TOL_VS_FP32})")
             require(e < TOL_VS_FP32, f"autograd {name}")
+    q, k, v, do, lse, delta = slice_inputs
 
     # -- 4. timings at the GPT-2 shape --------------------------------------
+    # The card's clocks ramp up under load: without this the first kernel
+    # timed reads up to half again slower than the rest.
+    warm = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
+    t_warm = time.perf_counter() + 1.0
+    while time.perf_counter() < t_warm:
+        warm @ warm
+        torch.cuda.synchronize()
+    del warm
     pairs = B * H * causal_pairs(S, S, True)
     elem = B * H * S * D * 2  # bytes of one [B,H,S,D] bf16 tensor
     stat = B * H * S * 4      # bytes of one fp32 [B,H,S] (lse, delta)
@@ -252,6 +317,11 @@ def main(argv):
     print(f"time K2+K3 {pair_ms:.4f} ms; "
           f"bound of the backward (5 products) {pair_bound:.4f} ms by "
           f"{pair_by}; SDPA backward (dq, dk, dv) {sdpa_bwd:.4f} ms")
+    fwd = timing["flash_fwd"]
+    print(f"ratio K1 / SDPA forward {fwd['ms'] / fwd['library_ms']:.3f}"
+          f"; K2 / SDPA backward "
+          f"{timing['flash_bwd_dkdv']['ms'] / sdpa_bwd:.3f}; K2+K3 / SDPA "
+          f"backward {pair_ms / sdpa_bwd:.3f}")
     del out, xs
 
     # -- 5a. tiny GPT-2 step: kernels against the plain attention ------------
@@ -352,7 +422,8 @@ def main(argv):
         kernels.append(dict(name=name, route="cuda", source=r["source"],
                             replaces=r["replaces"],
                             launches=launches[name],
-                            max_abs_err=errs[name], **timing[name]))
+                            max_abs_err=errs[name], **timing[name],
+                            design=DESIGN[name], ptxas=ptxas[name]))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -26,8 +26,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
-# nvcc's output of the last build of each kernel (ptxas: registers,
-# shared memory and spills of every instantiation).
+# nvcc's output of the build of each kernel's current library (ptxas:
+# registers, shared memory and spills of every instantiation), kept beside
+# the library as <library>.log.
 build_logs: Dict[str, str] = {}
 
 
@@ -69,6 +70,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         out = _library_path(name)
         if out.exists():
             seconds[name] = 0.0
+            log = out.with_suffix(".log")
+            build_logs[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -83,6 +86,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if proc.returncode != 0:
             errors.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))

@@ -171,17 +171,31 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     return o, lse
 
 
+def _stats_rows(x: torch.Tensor, q: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """lse or delta as K2's TMA reads them: fp32 rows of Sq values, ``ld``
+    apart, with ``ld`` a multiple of 4 (16 bytes). Only a ragged Sq that
+    is not such a multiple pays for a padded copy."""
+    x = _stats(x, q)
+    sq = q.shape[2]
+    ld = -(-sq // 4) * 4
+    if ld != sq or x.data_ptr() % 16:
+        x = torch.nn.functional.pad(x, (0, ld - sq))
+    return x, ld
+
+
 def flash_bwd_dkdv(q, k, v, do, lse, delta, causal: bool, scale: float):
     """K2: (dk, dv). Plain version for CPU tensors, the kernel otherwise."""
     if q.device.type == "cpu":
         return flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal,
                                         scale)
-    fn = _kernel("flash_bwd_dkdv", [_P] * 8 + [_I] * 6 + [_F, _I, _P],
-                 q, k, v, do)
+    fn = _kernel("flash_bwd_dkdv", [_P] * 6 + [_I] + [_P] * 2 + [_I] * 6
+                 + [_F, _I, _P], q, k, v, do)
     b, h, sq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(fn, q, k, v, do, _stats(lse, q), _stats(delta, q), dk, dv, b, h,
-            sq, k.shape[2], d, int(causal), float(scale),
+    lse_rows, ld = _stats_rows(lse, q)
+    delta_rows, _ = _stats_rows(delta, q)
+    _launch(fn, q, k, v, do, lse_rows, delta_rows, ld, dk, dv, b, h, sq,
+            k.shape[2], d, int(causal), float(scale),
             int(q.dtype == torch.bfloat16))
     flash_bwd_dkdv.launches += 1
     return dk, dv

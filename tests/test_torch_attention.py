@@ -26,6 +26,14 @@ from ray_tpu_torch.ops import attention as tattn
 ATOL = 2e-5
 
 
+@pytest.fixture(autouse=True)
+def _full_fp32():
+    """fp32 products at full precision whatever the process was left with:
+    the plain versions are the reference here (see ``device.full_fp32``)."""
+    with tdevice.full_fp32():
+        yield
+
+
 def _inputs(b, h, sq, sk, d, seed=0):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
@@ -38,7 +46,8 @@ def _inputs(b, h, sq, sk, d, seed=0):
 def _close(actual, desired, atol=ATOL):
     np.testing.assert_allclose(np.asarray(actual, np.float32),
                                np.asarray(desired, np.float32),
-                               rtol=0, atol=atol)
+                               rtol=0, atol=atol,
+                               err_msg=tdevice.fp32_settings())
 
 
 # (b, h, sq, sk, d, causal, block): block is the Pallas tiling.
@@ -140,6 +149,46 @@ def test_reference_q_offset_and_masked_rows():
             assert float(lse_t[..., :-off].max()) < -1e29
 
 
+def test_full_fp32_holds_the_plain_forward_exact():
+    """A process left with oneDNN's fp32 products in bf16 (which moves
+    this forward by ~1e-2 on CPUs with bf16 units) reads every fp32
+    setting as IEEE inside ``full_fp32``, computes the plain forward to
+    fp32 accuracy there, and gets its settings back afterwards."""
+    q, k, v, _ = _inputs(2, 2, 128, 128, 64)
+    ts = [torch.from_numpy(x) for x in (q, k, v)]
+    exact, _ = tattn.mha_reference_with_lse(*(t.double() for t in ts))
+    knobs = tdevice.fp32_knobs()
+    assert "mkldnn.matmul" in knobs  # PyTorch >= 2.9
+    prev = {name: obj.fp32_precision for name, obj in knobs.items()}
+    knobs["mkldnn.matmul"].fp32_precision = "bf16"
+    try:
+        with tdevice.full_fp32():
+            inside = {n: obj.fp32_precision for n, obj in knobs.items()}
+            o, _ = tattn.mha_reference_with_lse(*ts)
+        after = knobs["mkldnn.matmul"].fp32_precision
+        settings = tdevice.fp32_settings()
+    finally:
+        for name, obj in knobs.items():
+            obj.fp32_precision = prev[name]
+    assert set(inside.values()) == {"ieee"}, inside
+    assert after == "bf16"
+    assert "mkldnn.matmul.fp32_precision=bf16" in settings
+    _close(o.double(), exact, atol=2e-6)
+
+
+@pytest.mark.parametrize("sq", [1000, 333])
+def test_stats_rows_pad_to_16_bytes(sq):
+    """lse/delta rows for K2's TMA loads: ``ld`` a multiple of 4 floats,
+    the first Sq values of every row unchanged, no copy when Sq fits."""
+    q = torch.zeros((2, 3, sq, 64))
+    lse = torch.randn((2, 3, sq))
+    rows, ld = tattn._stats_rows(lse, q)
+    assert ld % 4 == 0 and sq <= ld < sq + 4
+    assert rows.shape == (2, 3, ld) and rows.is_contiguous()
+    assert torch.equal(rows[..., :sq], lse)
+    assert (rows.data_ptr() == lse.data_ptr()) == (ld == sq)
+
+
 def test_reference_impl_matches_flash_path():
     q, k, v, _ = _inputs(1, 2, 32, 32, 16)
     ts = [torch.from_numpy(x) for x in (q, k, v)]
@@ -213,6 +262,25 @@ def test_kernel_path_raises_when_loader_fails(monkeypatch):
         tattn.attention_with_lse(q, q, q)
     with pytest.raises(RuntimeError, match="cannot load flash_bwd_dkdv"):
         tattn.flash_bwd_dkdv(q, q, q, q, lse, lse, True, 0.125)
+
+
+def test_build_keeps_nvcc_log_beside_library(monkeypatch, tmp_path):
+    """ptxas's report of a library survives its build: a later process
+    that finds the library built reads the same log."""
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = -o ] && '
+                    'out="$2"; shift; done\necho "ptxas info: Used 42 '
+                    'registers"\n: > "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "build_logs", {})
+    secs = _build.build(["flash_fwd"])
+    assert secs["flash_fwd"] > 0
+    assert "Used 42 registers" in _build.build_logs["flash_fwd"]
+    monkeypatch.setattr(_build, "build_logs", {})
+    assert _build.build(["flash_fwd"]) == {"flash_fwd": 0.0}
+    assert "Used 42 registers" in _build.build_logs["flash_fwd"]
 
 
 def test_build_names_every_kernel_source():

@@ -10,7 +10,16 @@ on a machine that has only PyTorch:
 import pytest
 import torch
 
+from ray_tpu_torch import device as tdevice
 from ray_tpu_torch.ops import attention as tattn
+
+
+@pytest.fixture(autouse=True)
+def _full_fp32():
+    """fp32 products at full precision whatever the process was left with:
+    the plain versions are the reference here (see ``device.full_fp32``)."""
+    with tdevice.full_fp32():
+        yield
 
 
 @pytest.fixture
@@ -21,15 +30,21 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,sk,d,causal", [(256, 256, 64, True),
-                                            (200, 333, 64, False),
-                                            (128, 128, 128, True)])
-def test_cuda_kernels_match_plain(cuda, sq, sk, d, causal):
-    """bf16 kernels against the plain versions on the same bf16 inputs;
+@pytest.mark.parametrize("sq,sk,d,causal,dtype", [
+    (256, 256, 64, True, torch.bfloat16),
+    (200, 333, 64, False, torch.bfloat16),
+    (128, 128, 128, True, torch.bfloat16),
+    (256, 256, 64, True, torch.float16),
+    (200, 333, 128, False, torch.bfloat16),  # non-causal Sq != Sk at D 128
+    (128, 384, 64, True, torch.bfloat16),    # causal Sq < Sk
+    (129, 129, 64, True, torch.bfloat16),    # one tile plus one
+])
+def test_cuda_kernels_match_plain(cuda, sq, sk, d, causal, dtype):
+    """Kernels against the plain versions on the same 16-bit inputs;
     2e-2 of the largest entry (bf16 keeps 8 bits)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     mk = lambda s: torch.randn((2, 3, s, d), generator=g, device=cuda,
-                               dtype=torch.bfloat16)
+                               dtype=dtype)
     q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
     scale = d ** -0.5
     tattn.reset_launch_counts()

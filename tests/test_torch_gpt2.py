@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from ray_tpu.models import gpt2 as jgpt2
+from ray_tpu_torch import device as tdevice
 from ray_tpu_torch.models import gpt2 as tgpt2
 from ray_tpu_torch.models.common import param_count
 from ray_tpu_torch.models.convert import (gpt2_params_from_numpy,
@@ -24,6 +25,14 @@ from ray_tpu_torch.models.convert import (gpt2_params_from_numpy,
 
 TINY = dict(vocab_size=128, max_seq=64, num_layers=2, num_heads=2,
             d_model=64)
+
+
+@pytest.fixture(autouse=True)
+def _full_fp32():
+    """fp32 products at full precision whatever the process was left with:
+    the plain versions are the reference here (see ``device.full_fp32``)."""
+    with tdevice.full_fp32():
+        yield
 
 
 def _pair(**kw):

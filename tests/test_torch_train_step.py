@@ -30,6 +30,7 @@ from ray_tpu.models import gpt2 as jgpt2
 from ray_tpu.parallel.mesh import MeshSpec
 from ray_tpu.train.optim import adamw_lowmem as j_adamw_lowmem
 from ray_tpu.train.step import build_sharded_train
+from ray_tpu_torch import device as tdevice
 from ray_tpu_torch.models import gpt2 as tgpt2
 from ray_tpu_torch.models.convert import (gpt2_params_from_numpy,
                                           gpt2_tree_to_numpy)
@@ -39,6 +40,14 @@ from ray_tpu_torch.train.step import build_train
 TINY = dict(vocab_size=128, max_seq=64, num_layers=2, num_heads=2,
             d_model=64)
 EPS = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _full_fp32():
+    """fp32 products at full precision whatever the process was left with:
+    the plain versions are the reference here (see ``device.full_fp32``)."""
+    with tdevice.full_fp32():
+        yield
 
 
 def _close(actual, desired, bf16: bool):
