@@ -52,10 +52,9 @@ TOL_LSE = 1e-3           # absolute, fp32 lse (natural log units)
 TOL_E2E_LOSS = 1e-2      # tiny GPT-2: kernels vs plain attention, relative
 TOL_E2E_GRAD = 5e-2      # same, per-parameter gradient, relative to max
 
-# How each kernel is built: TMA loads under mbarriers feeding wgmma, or
-# the first port's synchronous loads feeding mma.sync.
-DESIGN = {"flash_fwd": "wgmma_tma", "flash_bwd_dkdv": "wgmma_tma",
-          "flash_bwd_dq": "mma_sync"}
+# How every kernel is built (csrc/hopper.cuh): TMA loads under mbarriers
+# feeding wgmma.
+DESIGN = "wgmma_tma"
 
 
 def smi_line():
@@ -423,7 +422,7 @@ def main(argv):
                             replaces=r["replaces"],
                             launches=launches[name],
                             max_abs_err=errs[name], **timing[name],
-                            design=DESIGN[name], ptxas=ptxas[name]))
+                            design=DESIGN, ptxas=ptxas[name]))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

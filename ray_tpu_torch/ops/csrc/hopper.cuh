@@ -10,8 +10,8 @@
 //   K-major operand (the reduction runs along the 128-byte rows): stride
 //     between 8-row groups (SBO) 1024 bytes; the 16-wide k-step advances
 //     the start address by 32 bytes inside the swizzled row;
-//   MN-major operand (the reduction runs down the rows; here V, dO and Q
-//     as B of P V, P^T dO and dS^T Q): SBO 1024 bytes between 8-row
+//   MN-major operand (the reduction runs down the rows; here V, dO, Q and
+//     K as B of P V, P^T dO, dS^T Q and dS K): SBO 1024 bytes between 8-row
 //     groups along k, LBO the distance between 64-column boxes along n;
 //     the k-step advances by 16 rows = 2048 bytes.
 //

@@ -283,6 +283,16 @@ def test_build_keeps_nvcc_log_beside_library(monkeypatch, tmp_path):
     assert "Used 42 registers" in _build.build_logs["flash_fwd"]
 
 
+def test_every_kernel_is_built_on_the_hopper_header():
+    """Each kernel source includes csrc/hopper.cuh and runs its products on
+    wgmma; no mma.sync is left, and hopper.cuh is the only header."""
+    for src in _build.CSRC.glob("*.cu"):
+        text = src.read_text()
+        assert '#include "hopper.cuh"' in text, src.name
+        assert "wgmma_" in text and "mma.sync" not in text, src.name
+    assert [p.name for p in _build.CSRC.glob("*.cuh")] == ["hopper.cuh"]
+
+
 def test_build_names_every_kernel_source():
     assert set(_build.KERNELS) == {
         p.stem for p in _build.CSRC.glob("*.cu")}

@@ -38,6 +38,9 @@ def cuda():
     (200, 333, 128, False, torch.bfloat16),  # non-causal Sq != Sk at D 128
     (128, 384, 64, True, torch.bfloat16),    # causal Sq < Sk
     (129, 129, 64, True, torch.bfloat16),    # one tile plus one
+    (200, 130, 128, True, torch.bfloat16),   # short query tile, causal Sq > Sk, D 128
+    (40, 40, 64, True, torch.bfloat16),      # one short tile
+    (256, 100, 64, False, torch.float16),    # Sk not a multiple of the key tile
 ])
 def test_cuda_kernels_match_plain(cuda, sq, sk, d, causal, dtype):
     """Kernels against the plain versions on the same 16-bit inputs;
@@ -63,3 +66,20 @@ def test_cuda_kernels_match_plain(cuda, sq, sk, d, causal, dtype):
         assert err < 2e-2
     assert (lse - rlse).abs().max() < 1e-4
     assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_dq_is_deterministic(cuda, d):
+    """K3 writes each dq row from one block, without atomics: two launches
+    on the same inputs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, do = (torch.randn((2, 3, 300, d), generator=g, device=cuda,
+                               dtype=torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = tattn.flash_fwd(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    first = tattn.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
+    second = tattn.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
