@@ -26,13 +26,35 @@ Phases; any failure exits non-zero:
      fp32 master, adamw_lowmem, batch 8, seq 1024) for 2 + 5 steps with
      the launch counters reset just before, and checks every loss is
      finite and every layer launched each kernel once per step;
-  6. prints the kernels as one JSON line, the card again, and last
+  6. serves llama-1b at full width (22 layers, d 2048, 32 heads, 4 KV
+     heads, vocab 32000; bf16, random weights from torch.Generator seed 0):
+     holds K1 against the plain attention on layer 0's q/k/v of a
+     128-token prompt ([1,32,128,64] bf16 causal, phase 3's tolerances);
+     holds forward() (K1, 22 launches, counted from zero) against an
+     fp32 run of the same weights on every row, the paged prefill's last
+     row against both and against the dense cache, and four chained paged
+     decode steps against the dense cache; two planted faults (forward
+     with non-causal K1, a decode step with one page of the table mapped
+     to an unwritten page) must read above their gate's tolerance; drives
+     SlotEngine(num_slots=8, chunk=128, page_size=16, decode_block=16)
+     through bench_llm's traffic
+     (128-token prompts, 128 new tokens, greedy) at concurrency 1, 4 and
+     8 and with 32 requests queued, requiring every request to end with
+     "length" and 128 tokens and the page pool to drain; checks a prefix
+     hit (>= 112 matched tokens); replays one seeded temperature-0.8
+     request and requires the same 128 tokens, with no block graph
+     captured after warmup; times the sampler every decode step runs;
+     calls LLMServer once plain and once streaming;
+  7. prints the kernels as one JSON line, the card again, and last
      {"ok": true, "device": {...}}.
 
-``--profile`` adds a torch.profiler breakdown of one training step
-(device time by kernel) to chiprun_out/chip_smoke_profile.txt.
+``--profile`` adds torch.profiler breakdowns (device time by kernel) of
+one training step to chiprun_out/chip_smoke_profile.txt and of one eager
+llama-1b decode step to chiprun_out/chip_smoke_profile_llama.txt.
 """
 
+import copy
+import dataclasses
 import json
 import math
 import os
@@ -51,6 +73,13 @@ TOL_VS_FP32 = 2e-2       # kernel vs fp32 autograd of the plain attention
 TOL_LSE = 1e-3           # absolute, fp32 lse (natural log units)
 TOL_E2E_LOSS = 1e-2      # tiny GPT-2: kernels vs plain attention, relative
 TOL_E2E_GRAD = 5e-2      # same, per-parameter gradient, relative to max
+# llama-1b serving checks, as the largest |logit difference| over the
+# largest |logit|. Between bf16 paths whose arithmetic differs (K1 against
+# the paged cache's fp32 softmax) or a bf16 path and an fp32 run of the
+# same weights, rounding compounds through 22 layers: ~2.4e-2 of sound
+# reading. The two cache layouts share their arithmetic and read 0.
+TOL_LLAMA = 5e-2
+TOL_LAYOUT = 1e-3
 
 # How every kernel is built (csrc/hopper.cuh): TMA loads under mbarriers
 # feeding wgmma.
@@ -414,8 +443,14 @@ def main(argv):
 
     if "--profile" in argv:
         profile_step(torch, step_fn, model, opt_state, step, data, root)
+    del model, opt_state, data
+    torch.cuda.empty_cache()
 
-    # -- 6. the record --------------------------------------------------------
+    # -- 6. llama-1b serving ----------------------------------------------------
+    llama_k1 = serve_phase(torch, A, dev,
+                           profile_root=root if "--profile" in argv else None)
+
+    # -- 7. the record --------------------------------------------------------
     kernels = []
     for name, r in rows.items():
         kernels.append(dict(name=name, route="cuda", source=r["source"],
@@ -423,6 +458,9 @@ def main(argv):
                             launches=launches[name],
                             max_abs_err=errs[name], **timing[name],
                             design=DESIGN, ptxas=ptxas[name]))
+    # K1 on the llama-1b check (forward at [1, 32, 128, 64]), apart from
+    # the GPT-2 training step's launches.
+    kernels[0]["launches_llama"] = llama_k1
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
@@ -430,6 +468,314 @@ def main(argv):
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def drain(engine, handles, limit=100000):
+    """step() until every handle is done and the pipeline is empty."""
+    for _ in range(limit):
+        if not engine.step() and all(h._done.is_set() for h in handles):
+            return
+    raise SystemExit("chip_smoke: FAILED: engine did not drain")
+
+
+def serve_phase(torch, A, dev, profile_root=None):
+    """Phase 6: llama-1b on the port's serving path. Returns K1's launches
+    on the forward check. With ``profile_root``, also writes a device-time
+    breakdown of one eager decode step."""
+    import asyncio
+
+    import numpy as np
+
+    from ray_tpu_torch.llm import sampling
+    from ray_tpu_torch.llm.engine import SlotEngine
+    from ray_tpu_torch.llm.serve import LLMServer
+    from ray_tpu_torch.models import llama
+
+    t_phase = time.perf_counter()
+    name = "llama-1b"
+    cfg = llama.CONFIGS[name]
+    model = llama.Llama(cfg, torch.Generator(device=dev).manual_seed(0),
+                        dev).to(cfg.dtype).requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{name}: {n_params} parameters ({n_params * 2 / 1e9:.3f} GB "
+          f"bf16), {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads} heads, {cfg.num_kv_heads} KV heads, vocab "
+          f"{cfg.vocab_size}, max_seq {cfg.max_seq}")
+    rng = np.random.default_rng(0)
+    prompt_len, max_new, ps = 128, 128, 16
+
+    def prompt():
+        return rng.integers(1, cfg.vocab_size, size=prompt_len).tolist()
+
+    # -- K1 at the llama shape, on layer 0's q/k/v ----------------------------
+    toks = torch.tensor(prompt(), device=dev)
+    hd, n_rep = cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+    with torch.no_grad():
+        x = model.wte[toks[None]].to(cfg.dtype)
+        q, k, v = model.blocks[0].qkv(
+            x, llama._rot(torch.arange(prompt_len, device=dev), cfg))
+        k, v = (llama._repeat_kv(t, n_rep).contiguous() for t in (k, v))
+        q = q.contiguous()
+    o, lse = A.flash_fwd(q, k, v, True, hd ** -0.5)
+    ro, rlse = A.mha_reference_with_lse(q, k, v, True, hd ** -0.5)
+    torch.cuda.synchronize()
+    e_o, e_lse = rel_err(o, ro), (lse - rlse).abs().max().item()
+    k1_abs = (o.float() - ro.float()).abs().max().item()
+    print(f"check {name} K1 {list(q.shape)} bf16 causal on layer 0's "
+          f"q/k/v vs plain: rel {e_o:.3e} (tol {TOL_VS_PLAIN}), abs "
+          f"{k1_abs:.3e}; lse abs {e_lse:.3e} (tol {TOL_LSE})")
+    require(e_o < TOL_VS_PLAIN and e_lse < TOL_LSE, "K1 at the llama shape")
+    del x, q, k, v, o, lse, ro, rlse
+
+    # -- paths against each other ------------------------------------------
+    causal_op = llama.attention_op
+
+    def forward(m, attn=None):
+        """All-row logits of ``m`` on the prompt, llama's attention swapped
+        for ``attn`` when given (K1 otherwise)."""
+        llama.attention_op = attn or causal_op
+        try:
+            with torch.no_grad():
+                return m(toks[None])[0]
+        finally:
+            llama.attention_op = causal_op
+
+    A.reset_launch_counts()
+    fwd = forward(model)
+    torch.cuda.synchronize()
+    k1 = A.flash_fwd.launches
+    print(f"{name} forward [1, {prompt_len}]: K1 launches {k1} (expect "
+          f"{cfg.num_layers})")
+    require(k1 == cfg.num_layers, "K1 launches on the llama forward")
+    # fp32 yardstick: the same (bf16-valued) weights with fp32 activations
+    # and the plain attention.
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32 = copy.deepcopy(model).float()
+    for m in (model32, *model32.blocks):
+        m.cfg = cfg32
+    fwd32 = forward(model32, lambda q, k, v, causal: A.mha_reference(
+        q, k, v, causal=causal))
+    del model32
+    # Control: the forward with K1's mask dropped.
+    bad = forward(model, lambda q, k, v, causal: causal_op(q, k, v,
+                                                           causal=False))
+    e_all, e_bad = rel_err(fwd, fwd32), rel_err(bad, fwd32)
+    print(f"check {name} forward (K1, bf16) vs fp32, all {prompt_len} rows:"
+          f" rel {e_all:.3e} (tol {TOL_LLAMA}; max |logit| "
+          f"{fwd32.abs().max().item():.4f}); control with non-causal K1: "
+          f"rel {e_bad:.3e} (must exceed the tol)")
+    require(e_all < TOL_LLAMA, "llama forward against fp32")
+    require(e_bad > TOL_LLAMA, "the forward gate sees a dropped mask")
+    pps = cfg.max_seq // ps
+    paged = llama.init_paged_kv_cache(cfg, 2 * pps + 1, ps, dev)
+    dense = llama.init_kv_cache(cfg, 2, dev)
+    tables = torch.zeros((2, pps), dtype=torch.int64, device=dev)
+    # Slot 1 on a scattered page set, slot 0 parked.
+    tables[1] = 1 + torch.randperm(2 * pps, device=dev,
+                                   generator=torch.Generator(
+                                       device=dev).manual_seed(3))[:pps]
+    lg_p, _ = llama.prefill_chunk_paged(model, paged, tables, toks, 1, 0,
+                                        prompt_len, ps)
+    lg_d, _ = llama.prefill_chunk(model, dense, toks, 1, 0,
+                                  last_idx=prompt_len - 1)
+    ref, ref32 = fwd[-1], fwd32[-1]
+    e_fwd, e32 = rel_err(lg_p, ref), rel_err(lg_p, ref32)
+    e_dense, e_bad_last = rel_err(lg_p, lg_d), rel_err(lg_p, bad[-1])
+    print(f"check {name} paged prefill, last row: vs forward (K1) rel "
+          f"{e_fwd:.3e}, vs fp32 {e32:.3e} (tol {TOL_LLAMA}); vs dense "
+          f"prefill {e_dense:.3e} (tol {TOL_LAYOUT}); argmax paged "
+          f"{int(lg_p.argmax())} forward {int(ref.argmax())} fp32 "
+          f"{int(ref32.argmax())}; the last row alone reads the non-causal "
+          f"forward at {e_bad_last:.3e}")
+    require(max(e_fwd, e32) < TOL_LLAMA and e_dense < TOL_LAYOUT,
+            "llama paged prefill")
+    tok = lg_p.argmax()
+    agree = 0
+    for step in range(4):
+        pos = torch.tensor([cfg.max_seq, prompt_len + step], device=dev)
+        both = torch.stack([torch.zeros_like(tok), tok])
+        lg_p, _ = llama.decode_slots_paged(model, paged, tables, both, pos,
+                                           ps)
+        # The dense layout parks idle rows at max_seq - 1.
+        lg_d, _ = llama.decode_slots(model, dense, both,
+                                     pos.clamp_max(cfg.max_seq - 1))
+        e = rel_err(lg_p[1], lg_d[1])
+        same = int(lg_p[1].argmax()) == int(lg_d[1].argmax())
+        agree += same
+        print(f"check {name} paged decode step {step} vs dense: rel "
+              f"{e:.3e} (tol {TOL_LAYOUT}); argmax agree {same}")
+        require(e < TOL_LAYOUT, f"llama paged decode step {step}")
+        tok = lg_p[1].argmax()
+    print(f"{name} paged vs dense greedy argmax agreement {agree}/4")
+    # Control: one more step with the slot's page 3 (tokens 48-63)
+    # mapped to an unwritten page.
+    bad_tables = tables.clone()
+    bad_tables[1, 3] = min(set(range(1, 2 * pps + 1))
+                           - set(tables[1].tolist()))
+    pos = torch.tensor([cfg.max_seq, prompt_len + 4], device=dev)
+    both = torch.stack([torch.zeros_like(tok), tok])
+    lg_p, _ = llama.decode_slots_paged(model, paged, bad_tables, both, pos,
+                                       ps)
+    lg_d, _ = llama.decode_slots(model, dense, both,
+                                 pos.clamp_max(cfg.max_seq - 1))
+    e_bad = rel_err(lg_p[1], lg_d[1])
+    print(f"control {name} paged decode with one page mapped to an "
+          f"unwritten page vs dense: rel {e_bad:.3e} (must exceed tol "
+          f"{TOL_LAYOUT})")
+    require(e_bad > TOL_LAYOUT, "the decode gate sees a wrong page")
+    del paged, dense, fwd, fwd32, bad
+
+    # -- the engine on bench_llm's traffic ------------------------------------
+    engine = SlotEngine(model, num_slots=8, chunk=128, page_size=ps,
+                        decode_block=16, device=dev)
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    print(f"engine: 8 slots, chunk 128, page {ps}, decode block 16, "
+          f"{engine.pages_total} pages; warmup {time.perf_counter() - t0:.3f} s"
+          f", block graphs captured {len(engine._graphs)}")
+    require(sorted(engine._graphs) == [False, True],
+            "warmup captures both block graphs")
+
+    def run(label, n, prompts=None, clear=True, **sampling):
+        prompts = prompts or [prompt() for _ in range(n)]
+        engine.reset_decode_profile()
+        t0 = time.perf_counter()
+        handles = [engine.submit(p, max_new=max_new, **sampling)
+                   for p in prompts]
+        drain(engine, handles)
+        dt = time.perf_counter() - t0
+        res = [h.result(timeout=0) for h in handles]
+        require(all(r.finish_reason == "length" and len(r.tokens) == max_new
+                    for r in res), f"{label}: every request ends with "
+                f"'length' and {max_new} tokens")
+        ttft = sorted(1e3 * (r.timing["admission_s"] + r.timing["queue_s"]
+                             + r.timing["prefill_s"]) for r in res)
+        prof = engine.decode_profile()
+        print(f"serve {label}: {n} requests, {n * max_new / dt:.1f} "
+              f"tokens/s, {n / dt:.3f} req/s, {dt:.3f} s; TTFT ms median "
+              f"{ttft[len(ttft) // 2]:.3f} max {ttft[-1]:.3f}; decode step "
+              f"{prof['avg_step_ms']} ms over {prof['steps']} steps, "
+              f"{prof['achieved_gbps']} GB/s = "
+              f"{100 * prof['roofline_frac']:.3f}% of "
+              f"{prof['hbm_gbps']:.0f} GB/s")
+        # The pool drains: no slot maps a page, the index holds the rest.
+        require(not engine._tables.any()
+                and engine.pages_used - 1 == engine.prefix_cache_len(),
+                f"{label}: pages at rest are radix-held")
+        if clear:
+            engine.clear_prefix_cache()
+            require(engine.pages_used == 1, f"{label}: pool drains to the "
+                    "scratch page")
+        return res
+
+    for conc in (1, 4, 8):
+        run(f"c{conc}", conc)
+    run("sustained", 32)
+
+    # -- a prefix hit --------------------------------------------------------
+    p = prompt()
+    hits0 = engine.prefix_hits
+    cold = run("prefix cold", 1, [p], clear=False)[0]
+    warm = run("prefix warm", 1, [p])[0]
+    matched = warm.timing["matched_tokens"]
+    same = sum(a == b for a, b in zip(cold.tokens, warm.tokens))
+    print(f"prefix hit: matched {matched} tokens (need >= 112), hits "
+          f"{hits0} -> {engine.prefix_hits}; tokens equal to the cold run "
+          f"{same}/{max_new}")
+    require(engine.prefix_hits == hits0 + 1 and matched >= 112,
+            "prefix hit")
+
+    # -- a seeded sampled request, replayed ---------------------------------
+    seeded = dict(temperature=0.8, seed=1234)
+    s1 = run("sampled t0.8", 1, [p], **seeded)[0]
+    s2 = run("sampled t0.8 replay", 1, [p], **seeded)[0]
+    same = sum(a == b for a, b in zip(s1.tokens, cold.tokens))
+    print(f"sampled (temperature 0.8, seed 1234): replay equal "
+          f"{s1.tokens == s2.tokens}; tokens equal to the greedy run "
+          f"{same}/{max_new}; block graphs {len(engine._graphs)}")
+    require(s1.tokens == s2.tokens, "a seeded request replays its tokens")
+    require(s1.tokens != cold.tokens, "temperature 0.8 samples")
+    require(len(engine._graphs) == 2, "no graph captured after warmup")
+    # Every decode step samples (greedy rows take the argmax): its cost.
+    logits = torch.randn((engine.num_slots, cfg.vocab_size), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    temps = torch.full((engine.num_slots,), 0.8, device=dev)
+    seeds = torch.arange(engine.num_slots, dtype=torch.int32, device=dev)
+    qpos = torch.full((engine.num_slots,), 200, device=dev)
+    t_sample = time_ms(torch, lambda: sampling.sample(logits, temps, seeds,
+                                                      qpos))
+    t_argmax = time_ms(torch, lambda: torch.argmax(logits, dim=-1))
+    print(f"sampler: sampling.sample on [{engine.num_slots}, "
+          f"{cfg.vocab_size}] {t_sample:.4f} ms of device time, argmax "
+          f"alone {t_argmax:.4f} ms")
+    if profile_root is not None:
+        profile_decode(torch, model, engine, profile_root)
+    del engine, model
+    torch.cuda.empty_cache()
+
+    # -- LLMServer ----------------------------------------------------------
+    server = LLMServer(model=name, num_slots=8, chunk=128, page_size=ps,
+                       decode_block=16, seed=0, default_max_tokens=max_new)
+
+    async def call_both(p):
+        plain = await server({"prompt": p, "max_tokens": max_new})
+        stream = [t async for t in await server(
+            {"prompt": p, "max_tokens": max_new, "stream": True})]
+        return plain, stream
+
+    plain, stream = asyncio.run(call_both(p))
+    require(plain["finish_reason"] == "length"
+            and len(plain["tokens"]) == max_new
+            and len(stream) == max_new, "LLMServer plain and streaming")
+    print(f"LLMServer: plain {len(plain['tokens'])} tokens, streamed "
+          f"{len(stream)}; equal to the engine's cold run "
+          f"{sum(a == b for a, b in zip(plain['tokens'], cold.tokens))}"
+          f"/{max_new}, stream equal to plain "
+          f"{sum(a == b for a, b in zip(plain['tokens'], stream))}/{max_new}")
+    stats = server.stats()
+    print(f"LLMServer stats: {json.dumps(stats)}")
+    server.engine.stop()
+    del server
+    torch.cuda.empty_cache()
+    print(f"serving phase: {time.perf_counter() - t_phase:.3f} s wall")
+    return k1
+
+
+def profile_decode(torch, model, engine, root):
+    """One eager decode step of every slot (8 rows, each 16 pages in, at
+    position 200) under torch.profiler: device time by op, beside the
+    engine's graph-replayed step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import llama
+
+    cfg, rows, ps = model.cfg, engine.num_slots, engine.page_size
+    pps = cfg.max_seq // ps
+    tables = torch.zeros((rows, pps), dtype=torch.int64, device=model.wte.device)
+    tables[:, :16] = 1 + torch.arange(rows * 16, device=tables.device).reshape(
+        rows, 16)
+    toks = torch.ones((rows,), dtype=torch.int64, device=tables.device)
+    pos = torch.full((rows,), 200, device=tables.device)
+    for _ in range(2):
+        llama.decode_slots_paged(model, engine._cache, tables, toks, pos, ps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        llama.decode_slots_paged(model, engine._cache, tables, toks, pos, ps)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.device_time_total for e in kernels) / 1e3
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=40)
+    out = os.path.join(root, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "chip_smoke_profile_llama.txt"), "w") as f:
+        f.write(table)
+    print(f"profile of one eager decode step: {len(kernels)} kernels, "
+          f"{dev_ms:.3f} ms of device time; by op (top 40) written to "
+          "chiprun_out/chip_smoke_profile_llama.txt")
 
 
 def profile_step(torch, step_fn, model, opt_state, step, data, root):

@@ -1,0 +1,215 @@
+"""Host-side bookkeeping for the paged KV cache: a refcounted page pool
+with an LRU free-list, and a radix/prefix index over page-size token
+chunks so multi-turn sessions sharing a prompt prefix skip the redundant
+prefill (RadixAttention, SGLang, re-expressed over the page-table
+indirection of :mod:`ray_tpu_torch.models.llama`).
+
+The port's own copy of the JAX package's ``llm/paged.py``, which imports
+no JAX: same classes, same LRU and refcount behaviour.
+
+Division of labor with :mod:`ray_tpu_torch.models.llama`:
+
+- device side: ``init_paged_kv_cache`` and the ``*_paged`` functions read
+  and write physical pages through a ``[rows, P]`` page table; physical
+  page 0 is the reserved scratch page every invalid write is routed to.
+- host side (this module): who owns which page. ``PagePool`` refcounts
+  pages; ``RadixIndex`` keys full pages on their page-size token chunk so
+  a later prompt sharing the prefix maps the SAME physical pages into its
+  table (read-only share, refcount +1 per borrower). A prefix that dies
+  mid-page is matched token-granular: the borrower gets the page
+  copy-on-write (the engine copies it into a fresh page at admission and
+  continues writing there), so shared pages are never written after
+  insertion.
+
+Eviction: index-held pages whose only reference IS the index are
+reclaimed leaf-first in LRU order when an admission needs more pages than
+the free list holds: a conversation tree's cold tails die before its hot
+shared system-prompt root.
+"""
+
+from __future__ import annotations
+
+import heapq
+import itertools
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple
+
+# The typed admission-shed error, re-exported for
+# ``from .paged import OverloadedError``.
+from ..core.exceptions import OverloadedError  # noqa: F401
+
+
+class PagePool:
+    """Refcounted physical-page allocator. Page 0 is the reserved
+    scratch page: never allocated, never freed, absorbs every invalid
+    device write. Freed pages return to an LRU free-list (appended on
+    free, popped oldest-first)."""
+
+    def __init__(self, num_pages: int):
+        if num_pages < 2:
+            raise ValueError("need at least 2 pages (scratch + 1)")
+        self.num_pages = num_pages
+        self._free: deque = deque(range(1, num_pages))
+        self._refs: Dict[int, int] = {}
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_count(self) -> int:
+        """Allocated pages + the scratch page."""
+        return self.num_pages - len(self._free)
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise RuntimeError("page pool exhausted")
+        page = self._free.popleft()
+        self._refs[page] = 1
+        return page
+
+    def ref(self, page: int) -> None:
+        self._refs[page] += 1
+
+    def unref(self, page: int) -> bool:
+        """Drop one reference; returns True when the page was freed."""
+        n = self._refs[page] - 1
+        if n:
+            self._refs[page] = n
+            return False
+        del self._refs[page]
+        self._free.append(page)
+        return True
+
+    def refcount(self, page: int) -> int:
+        return self._refs.get(page, 0)
+
+
+class _Node:
+    __slots__ = ("chunk", "page", "parent", "children", "tick")
+
+    def __init__(self, chunk: Tuple[int, ...], page: int,
+                 parent: Optional["_Node"]):
+        self.chunk = chunk
+        self.page = page
+        self.parent = parent
+        self.children: Dict[Tuple[int, ...], "_Node"] = {}
+        self.tick = 0
+
+
+class RadixIndex:
+    """Prefix index keyed on page-size token chunks. Each node owns one
+    reference on its physical page (taken at insert, dropped at evict);
+    borrowers (slots) take their own references via the pool."""
+
+    def __init__(self, pool: PagePool, page_size: int):
+        self._pool = pool
+        self._ps = page_size
+        self._root = _Node((), -1, None)
+        self._tick = itertools.count(1)
+        self._nodes = 0
+
+    def __len__(self) -> int:
+        return self._nodes
+
+    def match(self, prompt: Sequence[int]
+              ) -> Tuple[List[int], Optional[Tuple[int, int]]]:
+        """Longest indexed prefix of ``prompt``: a list of fully-matched
+        physical page ids, plus an optional ``(page, n_tokens)`` partial
+        match — a child chunk sharing >= 1 leading token with the
+        remainder, whose page the borrower must take copy-on-write."""
+        tick = next(self._tick)
+        node = self._root
+        pages: List[int] = []
+        i = 0
+        ps = self._ps
+        while i + ps <= len(prompt):
+            child = node.children.get(tuple(prompt[i:i + ps]))
+            if child is None:
+                break
+            child.tick = tick
+            pages.append(child.page)
+            node = child
+            i += ps
+        partial: Optional[Tuple[int, int]] = None
+        rest = tuple(prompt[i:i + ps])
+        if rest:
+            best = 0
+            for chunk, child in node.children.items():
+                n = 0
+                for a, b in zip(chunk, rest):
+                    if a != b:
+                        break
+                    n += 1
+                if n > best:
+                    best, partial = n, (child.page, n)
+                    child.tick = tick
+        return pages, partial
+
+    def insert(self, prompt: Sequence[int], pages: Sequence[int]) -> int:
+        """File ``prompt``'s fully-covered pages under their chunks.
+        ``pages[j]`` is the physical page holding tokens
+        ``prompt[j*ps:(j+1)*ps]``. Chunks already indexed are left
+        pointing at their existing page (first writer wins — borrowers
+        of either copy see identical content). Returns the number of
+        newly indexed pages (each took one pool reference)."""
+        tick = next(self._tick)
+        node = self._root
+        added = 0
+        ps = self._ps
+        for j in range(len(prompt) // ps):
+            chunk = tuple(prompt[j * ps:(j + 1) * ps])
+            child = node.children.get(chunk)
+            if child is None:
+                child = _Node(chunk, pages[j], node)
+                node.children[chunk] = child
+                self._pool.ref(pages[j])
+                self._nodes += 1
+                added += 1
+            child.tick = tick
+            node = child
+        return added
+
+    def evict(self, n_pages: int) -> int:
+        """Reclaim up to ``n_pages`` pages by dropping index nodes whose
+        page has no borrower (pool refcount 1 — only the index) and no
+        children, LRU-first. One tree traversal seeds a min-heap of
+        evictable leaves; freeing a leaf pushes its parent when that
+        made it evictable, so a cold chain unwinds tail-first without
+        re-walking the tree per page. Returns pages actually freed."""
+        freed = 0
+        heap: List[Tuple[int, int, _Node]] = []
+        tiebreak = itertools.count()
+        stack = list(self._root.children.values())
+        while stack:
+            node = stack.pop()
+            if node.children:
+                stack.extend(node.children.values())
+            elif self._pool.refcount(node.page) == 1:
+                heapq.heappush(heap, (node.tick, next(tiebreak), node))
+        while freed < n_pages and heap:
+            _, _, victim = heapq.heappop(heap)
+            parent = victim.parent
+            del parent.children[victim.chunk]
+            self._nodes -= 1
+            if self._pool.unref(victim.page):
+                freed += 1
+            if (parent is not self._root and not parent.children
+                    and self._pool.refcount(parent.page) == 1):
+                heapq.heappush(heap, (parent.tick, next(tiebreak),
+                                      parent))
+        return freed
+
+    def clear(self) -> int:
+        """Drop every index node (releasing its page reference);
+        returns pages freed. Used by tests and cold-run benches."""
+        freed = 0
+        stack = list(self._root.children.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            if self._pool.unref(node.page):
+                freed += 1
+        self._root.children.clear()
+        self._nodes = 0
+        return freed

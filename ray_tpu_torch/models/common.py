@@ -61,3 +61,29 @@ def cross_entropy_loss(logits, targets, ignore_id: int = -1):
     nll_sum, count = cross_entropy_sums(logits, targets, ignore_id)
     denom = count.clamp_min(1.0)
     return nll_sum / denom, denom
+
+
+class _LMHead(torch.autograd.Function):
+    """fp32 logits ``x @ w^T`` from 16-bit operands, as the JAX package's
+    ``dot_general(..., preferred_element_type=fp32)``. On CUDA one GEMM
+    writes fp32 directly; the backward takes the cotangent in the operand
+    dtype for the two tensor-core GEMMs."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda and x.dtype != torch.float32:
+            return torch.mm(x, w.t(), out_dtype=torch.float32)
+        return x.float() @ w.float().t()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w.to(x.dtype), (g.t() @ x).to(w.dtype)
+
+
+def lm_logits(x, w):
+    """Tied LM head: fp32 logits of ``x [..., d]`` against ``w [V, d]``."""
+    shape = x.shape[:-1]
+    return _LMHead.apply(x.reshape(-1, x.shape[-1]), w).reshape(*shape, -1)

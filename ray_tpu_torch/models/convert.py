@@ -1,5 +1,5 @@
-"""Carries GPT-2 parameters between the JAX package's pytree and the
-port's module.
+"""Carries GPT-2 and Llama parameters between the JAX package's pytrees
+and the port's modules.
 
 The JAX tree arrives as nested dicts of numpy arrays (``np.asarray`` of
 each leaf). Block leaves are stacked ``[L, ...]`` there and are one
@@ -10,12 +10,13 @@ arrays of an extension dtype named ``bfloat16``; they cross as their
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
-_TOP = ("wte", "wpe", "lnf_scale", "lnf_bias")
+_GPT2_TOP = ("wte", "wpe", "lnf_scale", "lnf_bias")
+_LLAMA_TOP = ("wte", "final_norm")
 
 
 def tensor_from_numpy(arr) -> torch.Tensor:
@@ -32,9 +33,9 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
-def gpt2_params_from_numpy(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """JAX GPT-2 pytree (numpy leaves) -> the ``GPT2`` module's state dict."""
-    state = {name: tensor_from_numpy(tree[name]) for name in _TOP}
+def _params_from_numpy(tree: Mapping, cfg, top: Sequence[str]
+                       ) -> Dict[str, torch.Tensor]:
+    state = {name: tensor_from_numpy(tree[name]) for name in top}
     for name, stacked in tree["blocks"].items():
         t = tensor_from_numpy(stacked)
         if t.shape[0] != cfg.num_layers:
@@ -45,13 +46,35 @@ def gpt2_params_from_numpy(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
     return state
 
 
-def gpt2_tree_to_numpy(named: Mapping[str, torch.Tensor], cfg) -> Dict:
-    """Module-named tensors (parameters or their gradients) -> the JAX
-    pytree layout as fp32 numpy, block leaves stacked ``[L, ...]``."""
-    tree = {name: tensor_to_numpy(named[name]) for name in _TOP}
+def _tree_to_numpy(named: Mapping[str, torch.Tensor], cfg,
+                   top: Sequence[str]) -> Dict:
+    tree = {name: tensor_to_numpy(named[name]) for name in top}
     names = {k.split(".", 2)[2] for k in named if k.startswith("blocks.")}
     tree["blocks"] = {
         n: np.stack([tensor_to_numpy(named[f"blocks.{i}.{n}"])
                      for i in range(cfg.num_layers)])
         for n in sorted(names)}
     return tree
+
+
+def gpt2_params_from_numpy(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX GPT-2 pytree (numpy leaves) -> the ``GPT2`` module's state dict."""
+    return _params_from_numpy(tree, cfg, _GPT2_TOP)
+
+
+def gpt2_tree_to_numpy(named: Mapping[str, torch.Tensor], cfg) -> Dict:
+    """Module-named tensors (parameters or their gradients) -> the JAX
+    pytree layout as fp32 numpy, block leaves stacked ``[L, ...]``."""
+    return _tree_to_numpy(named, cfg, _GPT2_TOP)
+
+
+def llama_params_from_numpy(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX Llama pytree (numpy leaves) -> the ``Llama`` module's state
+    dict."""
+    return _params_from_numpy(tree, cfg, _LLAMA_TOP)
+
+
+def llama_tree_to_numpy(named: Mapping[str, torch.Tensor], cfg) -> Dict:
+    """Module-named tensors (parameters or their gradients) -> the JAX
+    Llama pytree layout as fp32 numpy, block leaves stacked ``[L, ...]``."""
+    return _tree_to_numpy(named, cfg, _LLAMA_TOP)

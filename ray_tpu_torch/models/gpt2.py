@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention as attention_op
-from .common import cross_entropy_sums, layer_norm, truncated_normal
+from .common import (cross_entropy_sums, layer_norm, lm_logits,
+                     truncated_normal)
 
 
 @dataclass(frozen=True)
@@ -135,32 +136,6 @@ class Block(nn.Module):
         hdn = F.gelu(self._dense(y, self.mlp_in_w, self.mlp_in_b),
                      approximate="tanh")
         return x + self._dense(hdn, self.mlp_out_w, self.mlp_out_b)
-
-
-class _LMHead(torch.autograd.Function):
-    """fp32 logits ``x @ w^T`` from 16-bit operands, as the JAX package's
-    ``dot_general(..., preferred_element_type=fp32)``. On CUDA one GEMM
-    writes fp32 directly; the backward takes the cotangent in the operand
-    dtype for the two tensor-core GEMMs."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        if x.is_cuda and x.dtype != torch.float32:
-            return torch.mm(x, w.t(), out_dtype=torch.float32)
-        return x.float() @ w.float().t()
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.to(x.dtype)
-        return g @ w.to(x.dtype), (g.t() @ x).to(w.dtype)
-
-
-def lm_logits(x, w):
-    """Tied LM head: fp32 logits of ``x [..., d]`` against ``w [V, d]``."""
-    shape = x.shape[:-1]
-    return _LMHead.apply(x.reshape(-1, x.shape[-1]), w).reshape(*shape, -1)
 
 
 class GPT2(nn.Module):

@@ -83,3 +83,166 @@ def test_cuda_dq_is_deterministic(cuda, d):
     second = tattn.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
     torch.cuda.synchronize()
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+# -- the serving path (models/llama, llm/) on the card ------------------------
+
+def _tiny_llama(cuda, dtype=torch.bfloat16, max_seq=256):
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab_size=512, max_seq=max_seq, num_layers=2,
+                            num_heads=4, num_kv_heads=2, d_model=128,
+                            d_mlp=344, dtype=dtype, remat=False)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    return llama.Llama(cfg, gen, cuda).to(dtype).requires_grad_(False)
+
+
+@pytest.mark.cuda
+def test_cuda_entry_points_default_to_the_card(cuda):
+    from ray_tpu_torch.llm.engine import SlotEngine
+    from ray_tpu_torch.llm.serve import LLMServer
+    from ray_tpu_torch.models import llama
+
+    model = llama.Llama(llama.CONFIGS["llama-tiny"])
+    assert model.wte.device.type == "cuda"
+    engine = SlotEngine(model, num_slots=1, chunk=8)
+    assert engine._cache["kv"].device.type == "cuda"
+    server = LLMServer(num_slots=1, chunk=8)
+    try:
+        assert server.engine._cache["kv"].device.type == "cuda"
+    finally:
+        server.engine.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_sampler_matches_cpu(cuda):
+    """The seeded sampler draws the same tokens on the card as on the CPU
+    (threefry is integer arithmetic; the Gumbel noise may differ by an ulp
+    of log, which moves no token here)."""
+    import numpy as np
+
+    from ray_tpu_torch.llm import sampling
+
+    rng = np.random.default_rng(0)
+    for vocab in (512, 32000):
+        n = 201
+        logits = torch.from_numpy(
+            (rng.standard_normal((n, vocab)) * 2).astype(np.float32))
+        temps = torch.from_numpy(
+            rng.choice([0.0, 0.3, 0.8, 1.5], n).astype(np.float32))
+        seeds = torch.from_numpy(rng.choice(
+            [0, 4242, 2**31 - 1, -7], n).astype(np.int32))
+        qpos = torch.arange(n)
+        want = sampling.sample(logits, temps, seeds, qpos)
+        got = sampling.sample(logits.to(cuda), temps.to(cuda),
+                              seeds.to(cuda), qpos.to(cuda))
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_matches_dense_bf16(cuda):
+    """Paged prefill and decode against the dense cache in bf16 on the
+    card: 2e-2 of the largest logit."""
+    from ray_tpu_torch.models import llama
+
+    model = _tiny_llama(cuda)
+    cfg, ps = model.cfg, 16
+    pps = cfg.max_seq // ps
+    g = torch.Generator(device=cuda).manual_seed(1)
+    prompt = torch.randint(1, cfg.vocab_size, (37,), device=cuda, generator=g)
+    paged = llama.init_paged_kv_cache(cfg, 2 * pps + 1, ps, cuda)
+    dense = llama.init_kv_cache(cfg, 2, cuda)
+    tables = torch.zeros((2, pps), dtype=torch.int64, device=cuda)
+    tables[1] = torch.arange(pps, 0, -1, device=cuda)
+    buf = torch.zeros((48,), dtype=torch.int64, device=cuda)
+    buf[:37] = prompt
+    lg_p, _ = llama.prefill_chunk_paged(model, paged, tables, buf, 1, 0, 37,
+                                        ps)
+    lg_d, _ = llama.prefill_chunk(model, dense, buf, 1, 0, last_idx=36)
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    assert rel(lg_p, lg_d) < 2e-2
+    tok = lg_p.argmax()
+    for step in range(4):
+        pos = torch.tensor([cfg.max_seq, 37 + step], device=cuda)
+        both = torch.stack([torch.zeros_like(tok), tok])
+        lg_p, _ = llama.decode_slots_paged(model, paged, tables, both, pos,
+                                           ps)
+        lg_d, _ = llama.decode_slots(model, dense, both,
+                                     pos.clamp_max(cfg.max_seq - 1))
+        assert rel(lg_p[1], lg_d[1]) < 2e-2
+        tok = lg_p[1].argmax()
+
+
+@pytest.mark.cuda
+def test_cuda_engine_fetch_overlaps_the_next_block(cuda):
+    """Lag-1: when step() returns, the block it dispatched is still in
+    flight and the previous block's tokens are delivered. A sleep kernel
+    queued ahead of the step holds the new block back; a fetch that
+    synchronized the stream would have waited for it."""
+    from ray_tpu_torch.llm.engine import SlotEngine
+
+    engine = SlotEngine(_tiny_llama(cuda), num_slots=2, chunk=8,
+                        page_size=8, decode_block=4, device=cuda)
+    h = engine.submit([3, 141, 59, 26, 5], max_new=64)
+    while len(h._tokens) < 5:  # past prefill, into steady decode blocks
+        engine.step()
+    assert engine._inflight is not None
+    torch.cuda.synchronize()
+    before = len(h._tokens)
+    torch.cuda._sleep(2_000_000_000)  # ~1 s of one SM's clock
+    engine.step()
+    in_flight = not engine._inflight[3].query()
+    delivered = len(h._tokens) - before
+    torch.cuda.synchronize()
+    assert in_flight, "the block dispatched by step() already finished"
+    assert delivered == 4, "the previous block's tokens were not delivered"
+    while not h._done.is_set():
+        engine.step()
+    assert len(h.result(timeout=0).tokens) == 64
+
+
+@pytest.mark.cuda
+def test_cuda_engine_graphs_match_eager_paths(cuda):
+    """The engine replays each block as a CUDA graph on the card. fp32
+    weights: seeded and greedy tokens equal to the engine run eagerly on
+    the CPU with the same weights, greedy ones equal to ``generate``
+    (dense, eager) on the card. Staggered joins with mixed sampling, a
+    chunked prompt, decode blocks of 4 and a last greedy request alone
+    run through both block graphs (with the prompt chunk and decode
+    only)."""
+    from ray_tpu_torch.llm.engine import SlotEngine
+    from ray_tpu_torch.models import llama
+
+    model = _tiny_llama(cuda, dtype=torch.float32)
+    cpu_model = _tiny_llama(cuda, dtype=torch.float32).cpu()
+    cpu_model.load_state_dict(model.state_dict())
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(1, 512, (n,), generator=g).tolist()
+               for n in (5, 19, 3, 11)]
+    kw = dict(num_slots=3, chunk=8, page_size=8, decode_block=4)
+    tokens = {}
+    for name, m, dev in (("cuda", model, cuda), ("cpu", cpu_model, "cpu")):
+        engine = SlotEngine(m, device=dev, **kw)
+        handles = []
+        for i, p in enumerate(prompts):
+            handles.append(engine.submit(
+                p, max_new=10, temperature=0.8 if i % 2 else 0.0,
+                seed=4242 + i))
+            engine.step()
+        while not all(h._done.is_set() for h in handles):
+            engine.step()
+        handles.append(engine.submit(prompts[0], max_new=10))
+        while not handles[-1]._done.is_set():
+            engine.step()
+        tokens[name] = [h.result(timeout=0).tokens for h in handles]
+        if name == "cuda":
+            assert sorted(engine._graphs) == [False, True]
+    assert tokens["cuda"] == tokens["cpu"]
+    for i in (0, 2):
+        ref = llama.generate(model, torch.tensor([prompts[i]], device=cuda),
+                             max_new=10)
+        assert tokens["cuda"][i] == ref[0, len(prompts[i]):].tolist()
+    assert tokens["cuda"][4] == tokens["cuda"][0]
