@@ -45,12 +45,37 @@ Phases; any failure exits non-zero:
      request and requires the same 128 tokens, with no block graph
      captured after warmup; times the sampler every decode step runs;
      calls LLMServer once plain and once streaming;
-  7. prints the kernels as one JSON line, the card again, and last
+  7. on-device PPO at bench.py's bench_ppo shape: OnDevicePPO(atari_sim(256),
+     rollout_length=128, minibatches=8, num_sgd_iter=4), the Nature-CNN
+     policy (random weights from torch.Generator seed 0). Holds the
+     threefry draws and three env steps on the card bit-equal to the CPU's
+     for the same keys and actions; the conv policy (bf16 trunk) against an
+     fp32 evaluation in the JAX package's layout (NHWC patches, HWIO
+     weights, (h, w, c) flatten), and GAE against a float64 loop, each gate
+     above its planted fault (a (c, h, w) flatten, GAE without the done
+     mask); one eager iteration followed by the capture of the iteration's
+     CUDA graph, a warm replay, then 5 replays timed on the host clock with a sync on the last loss
+     (env-steps/s = 5 * 128 * 256 / wall) and one replay on CUDA events;
+     one replay against one eager iteration from the same state; every
+     metric finite and timesteps_this_iter 32768; then CartPole
+     (cartpole(64), rollout 128, 8 minibatches, 4 epochs, seed 0) must reach
+     mean_episode_len >= 128 within 120 iterations;
+  8. prints the kernels as one JSON line, the card again, and last
      {"ok": true, "device": {...}}.
 
+Between phases 5 and 6 it also trains gpt2-774m at bench.py's configuration
+(batch 8, seq 1024, bf16, fp32 master, adamw_lowmem, remat_policy="mem2",
+bench.py's tokens): 2 + 5 steps, step time, MFU and peak memory, and
+K1-K3 launches per step counted from zero (36 each: mem2 keeps attention);
+then the same under remat_policy="none", whose losses must equal mem2's
+to 1e-3 and whose peak memory must be larger.
+
 ``--profile`` adds torch.profiler breakdowns (device time by kernel) of
-one training step to chiprun_out/chip_smoke_profile.txt and of one eager
-llama-1b decode step to chiprun_out/chip_smoke_profile_llama.txt.
+one training step to chiprun_out/chip_smoke_profile.txt, of one eager
+llama-1b decode step to chiprun_out/chip_smoke_profile_llama.txt, and of
+one training step of gpt2-774m under each policy to
+chiprun_out/chip_smoke_profile_774m_<policy>.txt, and of one replayed and
+one eager PPO iteration to chiprun_out/chip_smoke_profile_ppo_<how>.txt.
 """
 
 import copy
@@ -80,6 +105,21 @@ TOL_E2E_GRAD = 5e-2      # same, per-parameter gradient, relative to max
 # reading. The two cache layouts share their arithmetic and read 0.
 TOL_LLAMA = 5e-2
 TOL_LAYOUT = 1e-3
+# gpt2-774m: mem2 against no remat, the same steps, absolute on a loss of
+# ~10.8 (the forwards are the same kernels; the backward's weight products
+# are summed in another order).
+TOL_REMAT_LOSS = 1e-3
+# PPO. The conv policy's bf16 trunk against an fp32 evaluation of the same
+# weights, relative to the largest |logit| or |value|; GAE on the card
+# against a float64 loop, relative to the largest advantage; one replayed
+# iteration against one eager one, relative to each parameter's largest
+# entry and to each metric.
+TOL_PPO_NET = 5e-2
+TOL_GAE = 1e-5
+TOL_GRAPH = 1e-3
+GUMBEL_ABS = 2e-6  # the card's and the CPU's fp32 log may differ an ulp
+# bench.py's bench_ppo: envs, rollout length, epochs, minibatches.
+PPO_SHAPE = (256, 128, 4, 8)
 
 # How every kernel is built (csrc/hopper.cuh): TMA loads under mbarriers
 # feeding wgmma.
@@ -446,11 +486,24 @@ def main(argv):
     del model, opt_state, data
     torch.cuda.empty_cache()
 
+    # -- 5c. gpt2-774m at bench.py's configuration -----------------------------
+    launches_774m, train_774m = gpt2_774m_phase(
+        torch, A, profile_root=root if "--profile" in argv else None)
+
     # -- 6. llama-1b serving ----------------------------------------------------
     llama_k1 = serve_phase(torch, A, dev,
                            profile_root=root if "--profile" in argv else None)
 
-    # -- 7. the record --------------------------------------------------------
+    # -- 7. on-device PPO ---------------------------------------------------
+    ppo = ppo_phase(torch, A, dev,
+                    profile_root=root if "--profile" in argv else None)
+    print(f"north-star paths on {card}: gpt2-774m/mem2 step "
+          f"{train_774m['step_ms']:.3f} ms, MFU {train_774m['mfu_pct']:.3f}%, "
+          f"peak memory {train_774m['peak_gb']:.3f} GB; ppo-atari-256 "
+          f"{ppo['env_steps_s']:.1f} env-steps/s, an iteration "
+          f"{ppo['iteration_ms']:.4f} ms on CUDA events")
+
+    # -- 8. the record --------------------------------------------------------
     kernels = []
     for name, r in rows.items():
         kernels.append(dict(name=name, route="cuda", source=r["source"],
@@ -461,6 +514,10 @@ def main(argv):
     # K1 on the llama-1b check (forward at [1, 32, 128, 64]), apart from
     # the GPT-2 training step's launches.
     kernels[0]["launches_llama"] = llama_k1
+    # Per step of gpt2-774m, by remat policy.
+    for k in kernels:
+        k["launches_gpt2_774m_per_step"] = {
+            policy: n[k["name"]] for policy, n in launches_774m.items()}
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
@@ -468,6 +525,358 @@ def main(argv):
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def gpt2_774m_phase(torch, A, profile_root=None):
+    """gpt2-774m at bench.py's configuration under remat_policy "mem2",
+    then "none" if it fits. Returns K1-K3 launches per step by policy, and
+    mem2's step ms, MFU (%) and peak memory (GB). With ``profile_root``,
+    also writes a device-time breakdown of one step under each policy."""
+    import numpy as np
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.common import param_count
+    from ray_tpu_torch.train.optim import (adamw_lowmem,
+                                           warmup_cosine_decay_schedule)
+    from ray_tpu_torch.train.step import build_train
+
+    t_phase = time.perf_counter()
+    base = gpt2.CONFIGS["gpt2-774m"]
+    batch, seq, warm, steps = 8, 1024, 2, 5
+    # bench.py's tokens: numpy's default_rng(0), [batch, seq + 1].
+    tokens = np.random.default_rng(0).integers(0, base.vocab_size,
+                                               (batch, seq + 1))
+    data = {"tokens": torch.from_numpy(tokens).cuda()}
+    launches, losses, peaks, results = {}, {}, {}, {}
+    for policy in ("mem2", "none"):
+        cfg = gpt2.GPT2Config(vocab_size=base.vocab_size, max_seq=seq,
+                              num_layers=base.num_layers,
+                              num_heads=base.num_heads, d_model=base.d_model,
+                              dtype=torch.bfloat16, attention_impl="flash",
+                              remat_policy=policy)
+        sched = warmup_cosine_decay_schedule(0.0, 1e-4, 100, 1000,
+                                             end_value=1e-5)
+        init, step_fn = build_train(lambda g: gpt2.GPT2(cfg, g),
+                                    lambda m, b: m.loss_fn(b),
+                                    optimizer=adamw_lowmem(sched),
+                                    master_fp32=True)
+        t0 = time.perf_counter()
+        try:
+            model, opt_state, step = init(0)
+            torch.cuda.synchronize()
+            t_init = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launch_counts()
+            out = []
+            for _ in range(warm):
+                model, opt_state, step, met = step_fn(model, opt_state, step,
+                                                      data)
+                out.append(met["loss"])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(steps):
+                model, opt_state, step, met = step_fn(model, opt_state, step,
+                                                      data)
+                out.append(met["loss"])
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t1
+        except torch.cuda.OutOfMemoryError:
+            require(policy != "mem2", "gpt2-774m under mem2 fits the card")
+            print(f"gpt2-774m remat {policy}: out of memory; not run")
+            model = opt_state = None
+            torch.cuda.empty_cache()
+            break
+        n = warm + steps
+        launches[policy] = {f.__name__: f.launches / n
+                            for f in A.KERNEL_WRAPPERS}
+        losses[policy] = [x.item() for x in out]
+        peaks[policy] = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = elapsed / steps * 1e3
+        tok_s = batch * seq * steps / elapsed
+        mfu = tok_s * gpt2.flops_per_token(cfg, seq) / PEAK_BF16_FLOPS
+        results[policy] = dict(step_ms=step_ms, mfu_pct=100 * mfu,
+                               peak_gb=peaks[policy])
+        print(f"gpt2-774m remat {policy}: {param_count(model)} parameters, "
+              f"batch {batch}, seq {seq}, bf16 + fp32 master, adamw_lowmem; "
+              f"init {t_init:.3f} s")
+        print(f"gpt2-774m remat {policy} losses {losses[policy]}")
+        print(f"gpt2-774m remat {policy} train: step {step_ms:.3f} ms, "
+              f"{tok_s:.1f} tokens/s, MFU {100 * mfu:.3f}% of "
+              f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, peak memory "
+              f"{peaks[policy]:.3f} GB; launches per step {launches[policy]}"
+              f" (expect {cfg.num_layers} each)")
+        require(all(math.isfinite(x) for x in losses[policy]),
+                f"gpt2-774m {policy}: finite losses")
+        require(abs(losses[policy][0] - math.log(cfg.vocab_size)) < 1.0,
+                f"gpt2-774m {policy}: first loss {losses[policy][0]} near "
+                f"ln(vocab) = {math.log(cfg.vocab_size):.3f}")
+        require(all(v == cfg.num_layers for v in launches[policy].values()),
+                f"gpt2-774m {policy}: one launch of each kernel per layer "
+                "per step")
+        if profile_root is not None:
+            profile_step(torch, step_fn, model, opt_state, step, data,
+                         profile_root, f"chip_smoke_profile_774m_{policy}.txt")
+        del model, opt_state, step_fn, init
+        torch.cuda.empty_cache()
+    if "none" in losses:
+        e = max(abs(a - b) for a, b in zip(losses["mem2"], losses["none"]))
+        print(f"gpt2-774m mem2 vs none: largest loss difference {e:.3e} "
+              f"(tol {TOL_REMAT_LOSS}); peak memory {peaks['mem2']:.3f} vs "
+              f"{peaks['none']:.3f} GB")
+        require(e < TOL_REMAT_LOSS, "gpt2-774m mem2 losses equal none's")
+        require(peaks["mem2"] < peaks["none"],
+                "mem2 keeps less than no remat")
+    print(f"gpt2-774m phase: {time.perf_counter() - t_phase:.3f} s wall")
+    return launches, results["mem2"]
+
+
+def conv_policy_reference(torch, params, obs):
+    """fp32 forward of the conv policy in the JAX package's layout, apart
+    from the port's: NHWC frames cut into [B, Ho, Wo, C, k, k] patches,
+    HWIO weights, the (h, w, c) flatten of the conv output."""
+    from ray_tpu_torch.rllib.policy import _CONV_SPEC
+
+    x = obs.float() / 255.0
+    for i, (_cout, k, stride) in enumerate(_CONV_SPEC):
+        w = params[f"conv{i}_w"].float().permute(2, 3, 1, 0)  # HWIO
+        patches = x.unfold(1, k, stride).unfold(2, k, stride)
+        x = torch.relu(torch.einsum("bhwcij,ijco->bhwo", patches, w)
+                       + params[f"conv{i}_b"].float())
+    x = torch.relu(x.reshape(x.shape[0], -1) @ params["dense_w"]
+                   + params["dense_b"])
+    return x @ params["pi_w"] + params["pi_b"], (
+        x @ params["vf_w"] + params["vf_b"])[..., 0]
+
+
+def chw_flatten_forward(torch, params, obs):
+    """The planted layout fault: the port's conv policy with its conv
+    output flattened in (c, h, w) order (the frames' channels unpadded)."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.rllib.policy import _CONV_SPEC
+
+    x = (obs.float() / 255.0).to(torch.bfloat16).permute(0, 3, 1, 2)
+    for i, (_cout, _k, stride) in enumerate(_CONV_SPEC):
+        x = F.conv2d(x, params[f"conv{i}_w"].to(x.dtype), stride=stride)
+        x = torch.relu(x + params[f"conv{i}_b"].to(x.dtype)[:, None, None])
+    x = x.reshape(x.shape[0], -1)
+    x = torch.relu(x @ params["dense_w"].to(x.dtype)
+                   + params["dense_b"].to(x.dtype)).float()
+    return x @ params["pi_w"] + params["pi_b"], (
+        x @ params["vf_w"] + params["vf_b"])[..., 0]
+
+
+def ppo_phase(torch, A, dev, profile_root=None):
+    """Phase 7: on-device PPO at bench_ppo's shape, then CartPole. Returns
+    env-steps/s and one replayed iteration's ms."""
+    from ray_tpu_torch import random as trandom
+    from ray_tpu_torch.rllib import ondevice, policy
+    from ray_tpu_torch.rllib.sample_batch import ACTIONS
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    N, T, E, M = PPO_SHAPE
+
+    # -- threefry on the card against the CPU --------------------------------
+    def draws(d):
+        key = trandom.prng_key(1234, d)
+        keys = trandom.split(key, T)
+        return {"split": torch.stack(keys, -1),
+                "uniform": trandom.uniform(keys, (N, 2), 20.0, 60.0),
+                "choice": trandom.choice(
+                    key, torch.tensor([-2.0, -1.0, 1.0, 2.0], device=d),
+                    (N, 2)),
+                "permutation": trandom.permutation(
+                    trandom.split(key, E), T * N),
+                "gumbel": trandom.gumbel(keys, (N, 6))}
+
+    on_card, on_cpu = draws(dev), draws(cpu)
+    torch.cuda.synchronize()
+    for name, ref in on_cpu.items():
+        got = on_card[name].cpu()
+        if name == "gumbel":
+            e = (got - ref).abs().max().item()
+            print(f"check threefry {name} {list(ref.shape)} card vs CPU: max "
+                  f"abs {e:.3e} (tol {GUMBEL_ABS})")
+            require(e <= GUMBEL_ABS, f"threefry {name} on the card")
+        else:
+            same = torch.equal(got, ref)
+            print(f"check threefry {name} {list(ref.shape)} card vs CPU: "
+                  f"bit-equal {same}")
+            require(same, f"threefry {name} on the card")
+
+    # -- env steps on the card against the CPU ---------------------------------
+    envs = {"card": ondevice.atari_sim(N, dev), "cpu": ondevice.atari_sim(N, cpu)}
+    key = trandom.prng_key(99)
+    states = {}
+    for name, env in envs.items():
+        state, _ = env.reset(tuple(w.to(env.device) for w in key))
+        state["t"][: N // 4] = 998  # a quarter of the envs restart
+        states[name] = state
+    acts = torch.randint(0, 6, (3, N), generator=torch.Generator().manual_seed(5))
+    for i in range(3):
+        key = trandom.take(trandom.split(key), 1)
+        outs = {}
+        for name, env in envs.items():
+            d = env.device
+            state, *outs[name] = env.step(states[name], acts[i].to(d),
+                                          tuple(w.to(d) for w in key))
+            states[name] = state
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(outs["card"],
+                                                            outs["cpu"]))
+        same &= all(torch.equal(states["card"][k].cpu(), v)
+                    for k, v in states["cpu"].items())
+        print(f"check atari_sim({N}) step {i} card vs CPU (frames, rewards, "
+              f"dones, state): bit-equal {same}; dones "
+              f"{int(outs['cpu'][2].sum())}")
+        require(same, f"atari_sim step {i} on the card")
+    frames = states["card"]["frames"]
+    del envs, states, on_card, on_cpu
+
+    # -- the learner at bench_ppo's shape ------------------------------------
+    algo = ondevice.OnDevicePPO(ondevice.atari_sim(N), rollout_length=T,
+                                minibatches=M, num_sgd_iter=E)
+    n_params = sum(p.numel() for p in algo.params.values())
+    print(f"ppo: OnDevicePPO(atari_sim({N}), rollout_length={T}, "
+          f"minibatches={M}, num_sgd_iter={E}), {algo.net.kind} policy, "
+          f"{n_params} parameters")
+    with torch.no_grad():
+        ref = conv_policy_reference(torch, algo.params, frames)
+        got = policy.forward_conv(algo.params, frames)
+        bad = chw_flatten_forward(torch, algo.params, frames)
+    for i, name in enumerate(("logits", "values")):
+        e, e_bad = rel_err(got[i], ref[i]), rel_err(bad[i], ref[i])
+        print(f"check ppo conv policy {name} (bf16 trunk) vs fp32 JAX-layout "
+              f"evaluation on {N} frames: rel {e:.3e} (tol {TOL_PPO_NET}); "
+              f"control with a (c, h, w) flatten: rel {e_bad:.3e} (must "
+              "exceed the tol)")
+        require(e < TOL_PPO_NET, f"ppo conv policy {name}")
+        require(e_bad > TOL_PPO_NET, f"the policy gate sees the layout fault "
+                f"({name})")
+    g = torch.Generator(device=dev).manual_seed(6)
+    rewards = torch.randn((T, N), generator=g, device=dev)
+    dones = torch.rand((T, N), generator=g, device=dev) < 0.05
+    values = torch.randn((T, N), generator=g, device=dev) * 5
+    last = torch.randn((N,), generator=g, device=dev)
+    advs, _ = ondevice.gae(rewards, dones, values, last, 0.99, 0.95)
+    no_mask, _ = ondevice.gae(rewards, torch.zeros_like(dones), values, last,
+                              0.99, 0.95)
+    r64, d64, v64 = (t.double().cpu() for t in (rewards, dones, values))
+    nxt = torch.cat([v64[1:], last.double().cpu()[None]])
+    want, adv = torch.zeros_like(r64), torch.zeros(N, dtype=torch.float64)
+    for t in reversed(range(T)):
+        keep = 1.0 - d64[t]
+        adv = r64[t] + 0.99 * nxt[t] * keep - v64[t] + 0.99 * 0.95 * keep * adv
+        want[t] = adv
+    e, e_bad = rel_err(advs.cpu().double(), want), rel_err(
+        no_mask.cpu().double(), want)
+    print(f"check ppo gae [{T},{N}] on the card vs a float64 loop: rel "
+          f"{e:.3e} (tol {TOL_GAE}); control without the done mask: rel "
+          f"{e_bad:.3e} (must exceed the tol)")
+    require(e < TOL_GAE, "gae on the card")
+    require(e_bad > TOL_GAE, "the GAE gate sees a dropped done mask")
+
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = algo.iterate()  # eager, then the graph is captured
+    torch.cuda.synchronize()
+    print(f"ppo first iteration (eager) and capture: "
+          f"{time.perf_counter() - t0:.3f} s; total_loss "
+          f"{m['total_loss'].item():.6f}")
+    algo.iterate()  # warm replay
+    torch.cuda.synchronize()
+    iters = 5
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        m = algo.iterate()
+    m["total_loss"].item()
+    wall = time.perf_counter() - t0
+    steps_s = iters * T * N / wall
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    algo.iterate()
+    end.record()
+    end.synchronize()
+    replay_ms = start.elapsed_time(end)
+    launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
+    print(f"ppo bench: {iters} iterations of {T} x {N} env steps in "
+          f"{wall:.4f} s: {steps_s:.1f} env-steps/s; one replayed iteration "
+          f"{replay_ms:.4f} ms on CUDA events; K1-K3 launches {launches} "
+          "(no attention on this path)")
+    out = algo.train_iteration()
+    print(f"ppo metrics {json.dumps(out)}")
+    require(all(math.isfinite(v) for v in out.values()), "ppo metrics finite")
+    require(out["timesteps_this_iter"] == T * N, "timesteps_this_iter")
+
+    # -- one replay against one eager iteration from the same state ----------
+    snap = algo.snapshot()
+    mg = {k: v.item() for k, v in algo.iterate().items()}
+    acts_g = algo.trajectory[ACTIONS].clone()
+    after_g = algo.snapshot()
+    algo.restore(snap)
+    me = {k: v.item() for k, v in algo.iterate(graph=False).items()}
+    acts_e = algo.trajectory[ACTIONS]
+    after_e = algo.snapshot()
+    n_p = len(algo.params)
+    e_par = max(rel_err(a, b) for a, b in zip(after_g[:n_p], after_e[:n_p]))
+    e_met = max(abs(mg[k] - me[k]) / max(abs(me[k]), 1e-6) for k in me)
+    same_acts = torch.equal(acts_g, acts_e)
+    print(f"check ppo graph replay vs eager from the same state: actions "
+          f"equal {same_acts}; parameters rel {e_par:.3e}, metrics rel "
+          f"{e_met:.3e} (tol {TOL_GRAPH})")
+    require(same_acts and e_par < TOL_GRAPH and e_met < TOL_GRAPH,
+            "ppo graph replay equals an eager iteration")
+    if profile_root is not None:
+        profile_ppo(torch, algo, profile_root)
+    del algo, snap, after_g, after_e
+    torch.cuda.empty_cache()
+
+    # -- CartPole learns -----------------------------------------------------
+    algo = ondevice.OnDevicePPO(ondevice.cartpole(64), rollout_length=128,
+                                minibatches=8, num_sgd_iter=4, seed=0)
+    t0 = time.perf_counter()
+    for i in range(120):
+        ep_len = algo.train_iteration()["mean_episode_len"]
+        if ep_len >= 128.0:
+            break
+    print(f"ppo cartpole(64): mean_episode_len {ep_len} after {i + 1} "
+          f"iterations ({time.perf_counter() - t0:.3f} s; need >= 128 "
+          "within 120)")
+    require(ep_len >= 128.0, "PPO learns CartPole")
+    del algo
+    torch.cuda.empty_cache()
+    print(f"ppo phase: {time.perf_counter() - t_phase:.3f} s wall")
+    return {"env_steps_s": steps_s, "iteration_ms": replay_ms}
+
+
+def profile_ppo(torch, algo, root):
+    """One replayed PPO iteration under torch.profiler, device time by
+    kernel; then one eager iteration, whose kernels the profiler can tie to
+    the operators that launched them. The learner's state is restored
+    after each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = os.path.join(root, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    snap = algo.snapshot()
+    for label, graph in (("replayed", True), ("eager", False)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            algo.iterate(graph=graph)
+            torch.cuda.synchronize()
+        algo.restore(snap)
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.device_time_total for e in kernels) / 1e3
+        table = prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=40, max_name_column_width=90)
+        name = f"chip_smoke_profile_ppo_{label}.txt"
+        with open(os.path.join(out, name), "w") as f:
+            f.write(table)
+        print(f"profile of one {label} PPO iteration: {len(kernels)} "
+              f"kernels, {dev_ms:.3f} ms of device time; by op (top 40) "
+              f"written to chiprun_out/{name}")
 
 
 def drain(engine, handles, limit=100000):
@@ -778,7 +1187,8 @@ def profile_decode(torch, model, engine, root):
           "chiprun_out/chip_smoke_profile_llama.txt")
 
 
-def profile_step(torch, step_fn, model, opt_state, step, data, root):
+def profile_step(torch, step_fn, model, opt_state, step, data, root,
+                 name="chip_smoke_profile.txt"):
     """One training step under torch.profiler; device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -790,10 +1200,10 @@ def profile_step(torch, step_fn, model, opt_state, step, data, root):
                                       row_limit=40)
     out = os.path.join(root, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "chip_smoke_profile.txt"), "w") as f:
+    with open(os.path.join(out, name), "w") as f:
         f.write(table)
-    print("profile of one step (top 40 by device time) written to "
-          "chiprun_out/chip_smoke_profile.txt")
+    print(f"profile of one step (top 40 by device time) written to "
+          f"chiprun_out/{name}")
 
 
 if __name__ == "__main__":

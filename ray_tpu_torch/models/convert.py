@@ -1,11 +1,15 @@
-"""Carries GPT-2 and Llama parameters between the JAX package's pytrees
-and the port's modules.
+"""Carries GPT-2, Llama and PPO-policy parameters between the JAX
+package's pytrees and the port's modules.
 
 The JAX tree arrives as nested dicts of numpy arrays (``np.asarray`` of
 each leaf). Block leaves are stacked ``[L, ...]`` there and are one
 tensor per layer here (``blocks.<i>.<name>``). bf16 leaves are numpy
 arrays of an extension dtype named ``bfloat16``; they cross as their
 ``uint16`` bits and are viewed as ``torch.bfloat16``, bit for bit.
+
+The PPO policies (``rllib/policy.py``) are flat dicts under the same names
+on both sides; conv weights are HWIO there and OIHW here, and the dense
+rows keep JAX's (h, w, c) order.
 """
 
 from __future__ import annotations
@@ -78,3 +82,22 @@ def llama_tree_to_numpy(named: Mapping[str, torch.Tensor], cfg) -> Dict:
     """Module-named tensors (parameters or their gradients) -> the JAX
     Llama pytree layout as fp32 numpy, block leaves stacked ``[L, ...]``."""
     return _tree_to_numpy(named, cfg, _LLAMA_TOP)
+
+
+def _is_conv(name: str) -> bool:
+    return name.startswith("conv") and name.endswith("_w")
+
+
+def ppo_params_from_numpy(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX policy params (MLP or conv; numpy leaves) -> the port's dict."""
+    return {name: (tensor_from_numpy(np.transpose(arr, (3, 2, 0, 1)))
+                   if _is_conv(name) else tensor_from_numpy(arr))
+            for name, arr in tree.items()}
+
+
+def ppo_tree_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's policy params (or their gradients) -> the JAX layout as
+    fp32 numpy."""
+    return {name: (tensor_to_numpy(t.permute(2, 3, 1, 0)) if _is_conv(name)
+                   else tensor_to_numpy(t))
+            for name, t in params.items()}

@@ -11,12 +11,33 @@ the JAX package's names and layouts (``qkv_w`` is ``[d, 3d]``, applied as
 Activations run in ``cfg.dtype`` (bf16); layer norms, logits and the loss
 in fp32. Not ported yet, and refused with ``NotImplementedError``: the
 sequence-parallel attention impls, MoE, sharding rules and pp (ROADMAP
-Queue A item 7), and the remat policies other than ``"none"`` (ROADMAP
-Queue A item 3b).
+Queue A item 7).
+
+Remat (``remat_policy``) keeps the saved set of the JAX package's policy
+of the same name and recomputes the rest of the block in the backward,
+on ``torch.utils.checkpoint``. A block is five parts, each named for the
+tensor it makes (the JAX package's ``checkpoint_name`` tags):
+
+  qkv      ln1 and the fused QKV product
+  attn     heads, flash attention (K1) -> ``attn_out`` and ``attn_lse``
+  proj     the output projection plus the residual
+  mlp_in   ln2 and the first MLP product
+  mlp_out  tanh-GELU and the second MLP product
+
+A policy keeps the outputs of some parts (``REMAT_KEEPS``). The block is
+cut after each kept part; each run of parts between cuts is one
+checkpointed region, whose inputs are all it holds for the backward, so
+what a region keeps is visible to ``saved_tensors_hooks``. A kept
+attention runs outside any region: its autograd node holds q, k, v (the
+``qkv`` tag, in head layout), o and lse, and K1 is not run again in the
+backward. In a recompute, the last part of a region skips its product:
+its output is read by no backward, as XLA drops it from the JAX
+package's recompute.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -41,8 +62,8 @@ class GPT2Config:
     d_mlp: Optional[int] = None
     dtype: torch.dtype = torch.bfloat16
     attention_impl: str = "auto"  # auto|flash|reference (ring|ulysses: A7)
-    # Only "none" so far; the JAX package's default is "dots" (and its
-    # remat=False reads as "none" here).
+    # none|full|dots|dots_attn|mem|mem2 (REMAT_KEEPS). The JAX package's
+    # default is "dots", and its remat=False reads as "none" here.
     remat_policy: str = "none"
     num_experts: int = 0
 
@@ -84,10 +105,90 @@ def _check_supported(cfg: GPT2Config) -> None:
     if cfg.num_experts > 0:
         raise NotImplementedError(
             "MoE blocks need expert parallelism: ROADMAP Queue A item 7")
-    if cfg.remat_policy != "none":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: the remat policies are "
-            "ROADMAP Queue A item 3b; use remat_policy='none'")
+    if cfg.remat_policy != "none" and cfg.remat_policy not in REMAT_KEEPS:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; one "
+                         f"of none, {', '.join(REMAT_KEEPS)}")
+
+
+# The parts of a block in order, with the earlier outputs each one reads
+# ("x" is the block's input). The block returns proj + mlp_out.
+_READS = {"qkv": ("x",), "attn": ("qkv",), "proj": ("x", "attn"),
+          "mlp_in": ("proj",), "mlp_out": ("mlp_in",)}
+_PART_NAMES = tuple(_READS)
+
+# Parts whose outputs each policy keeps for the backward; the rest is
+# recomputed. As ``ray_tpu/models/gpt2.py`` forward_features: "dots" keeps
+# the weight products (``dots_with_no_batch_dims_saveable``: not
+# attention), "dots_attn" those and attention, "mem" qkv, attention and
+# mlp_in, "mem2" qkv and attention, "full" nothing. Keeping mlp_out, the
+# last part, changes nothing: no backward reads it.
+REMAT_KEEPS: Dict[str, frozenset] = {
+    "full": frozenset(),
+    "dots": frozenset({"qkv", "proj", "mlp_in", "mlp_out"}),
+    "dots_attn": frozenset({"qkv", "attn", "proj", "mlp_in", "mlp_out"}),
+    "mem": frozenset({"qkv", "attn", "mlp_in"}),
+    "mem2": frozenset({"qkv", "attn"}),
+}
+
+
+def _regions(keep: frozenset):
+    """The runs of parts between cuts: a cut follows each kept part."""
+    runs, run = [], []
+    for name in _PART_NAMES:
+        run.append(name)
+        if name in keep or name == _PART_NAMES[-1]:
+            runs.append(tuple(run))
+            run = []
+    return runs
+
+
+def _inputs(run):
+    """The tensors parts ``run`` read from before the run, in order."""
+    out = []
+    for name in run:
+        for i in _READS[name]:
+            if i not in run and i not in out:
+                out.append(i)
+    return out
+
+
+class _Recompute:
+    """Whether one checkpointed region is running its recompute, for
+    ``checkpoint(context_fn=...)``."""
+
+    def __init__(self):
+        self.active = False
+
+    def contexts(self):
+        return contextlib.nullcontext(), self._recomputing()
+
+    @contextlib.contextmanager
+    def _recomputing(self):
+        self.active = True
+        try:
+            yield
+        finally:
+            self.active = False
+
+
+class _Dense(torch.autograd.Function):
+    """``y @ w + b`` inside a checkpointed region. Saves y and w; with
+    ``skip`` (a region's last product, in its recompute) the output is
+    left uncomputed, since no backward reads it."""
+
+    @staticmethod
+    def forward(ctx, y, w, b, skip: bool):
+        ctx.save_for_backward(y, w)
+        if skip:
+            return y.new_empty(y.shape[:-1] + w.shape[1:])
+        return F.linear(y, w.t(), b)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dw = y.reshape(-1, y.shape[-1]).t() @ g2
+        return g @ w.t(), dw, g2.sum(0), None
 
 
 class Block(nn.Module):
@@ -114,28 +215,71 @@ class Block(nn.Module):
         self.mlp_out_b = nn.Parameter(torch.zeros(d))
 
     @staticmethod
-    def _dense(x, w, b):
-        return F.linear(x, w.to(x.dtype).t(), b.to(x.dtype))
+    def _dense(y, w, b, skip: Optional[bool]):
+        """``y @ w + b`` in y's dtype; ``skip`` None outside a region."""
+        w, b = w.to(y.dtype), b.to(y.dtype)
+        if skip is None:
+            return F.linear(y, w.t(), b)
+        return _Dense.apply(y, w, b, skip)
+
+    def _part(self, name: str, inputs, skip: Optional[bool]):
+        if name == "qkv":
+            (x,) = inputs
+            y = layer_norm(x, self.ln1_scale, self.ln1_bias)
+            return self._dense(y, self.qkv_w, self.qkv_b, skip)
+        if name == "attn":
+            (qkv,) = inputs
+            b, s, _ = qkv.shape
+            h, hd = self.cfg.num_heads, self.cfg.head_dim
+            # [B,S,D] -> [B,H,S,hd], contiguous for the kernels
+            q, k, v = (t.reshape(b, s, h, hd).transpose(1, 2).contiguous()
+                       for t in qkv.split(h * hd, dim=-1))
+            return attention_op(q, k, v, causal=True,
+                                impl=self.cfg.attention_impl)
+        if name == "proj":
+            x, o = inputs
+            o = o.transpose(1, 2).reshape(x.shape)
+            return x + self._dense(o, self.proj_w, self.proj_b, skip)
+        if name == "mlp_in":
+            (x,) = inputs
+            y = layer_norm(x, self.ln2_scale, self.ln2_bias)
+            return self._dense(y, self.mlp_in_w, self.mlp_in_b, skip)
+        (hdn,) = inputs
+        hdn = F.gelu(hdn, approximate="tanh")
+        return self._dense(hdn, self.mlp_out_w, self.mlp_out_b, skip)
+
+    def _run(self, run, outputs, rc: Optional[_Recompute], *tensors):
+        """Parts ``run`` from their inputs (``tensors``, named as
+        ``_inputs(run)``); returns the named ``outputs``. Under ``rc`` the
+        run is a checkpointed region and its last product is skipped in
+        the recompute."""
+        env = dict(zip(_inputs(run), tensors))
+        for name in run:
+            skip = None if rc is None else (rc.active and name == run[-1])
+            env[name] = self._part(name, [env[i] for i in _READS[name]],
+                                   skip)
+        return tuple(env[n] for n in outputs)
 
     def forward(self, x):
-        b, s, d = x.shape
-        h, hd = self.cfg.num_heads, self.cfg.head_dim
-
-        y = layer_norm(x, self.ln1_scale, self.ln1_bias)
-        qkv = self._dense(y, self.qkv_w, self.qkv_b)
-
-        def heads(t):  # [B,S,D] -> [B,H,S,hd], contiguous for the kernels
-            return t.reshape(b, s, h, hd).transpose(1, 2).contiguous()
-
-        q, k, v = (heads(t) for t in qkv.split(d, dim=-1))
-        o = attention_op(q, k, v, causal=True, impl=self.cfg.attention_impl)
-        o = o.transpose(1, 2).reshape(b, s, d)
-        x = x + self._dense(o, self.proj_w, self.proj_b)
-
-        y = layer_norm(x, self.ln2_scale, self.ln2_bias)
-        hdn = F.gelu(self._dense(y, self.mlp_in_w, self.mlp_in_b),
-                     approximate="tanh")
-        return x + self._dense(hdn, self.mlp_out_w, self.mlp_out_b)
+        policy = self.cfg.remat_policy
+        runs = ([_PART_NAMES] if policy == "none"
+                else _regions(REMAT_KEEPS[policy]))
+        env = {"x": x}
+        for i, run in enumerate(runs):
+            later = {r for nxt in runs[i + 1:] for n in nxt for r in _READS[n]}
+            outputs = tuple(n for n in run if n in later | {"proj", "mlp_out"})
+            ins = [env[n] for n in _inputs(run)]
+            if policy == "none" or run == ("attn",):
+                # No remat, or a kept attention: _Flash's node holds q, k,
+                # v, o and lse.
+                outs = self._run(run, outputs, None, *ins)
+            else:
+                rc = _Recompute()
+                outs = checkpoint(self._run, run, outputs, rc, *ins,
+                                  use_reentrant=False,
+                                  context_fn=rc.contexts)
+            env.update(zip(outputs, outs))
+        return env["proj"] + env["mlp_out"]
 
 
 class GPT2(nn.Module):

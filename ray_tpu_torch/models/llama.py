@@ -53,7 +53,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import default_device
-from ..llm import sampling
+from .. import random as trandom
 from ..ops.attention import attention as attention_op
 from .common import cross_entropy_loss, lm_logits, rms_norm, truncated_normal
 
@@ -614,7 +614,7 @@ def generate(model: Llama, prompt_tokens, max_new: int = 32,
              temperature: float = 0.0, key=None):
     """Greedy or sampled generation over the dense cache, one decode_step
     per prompt token (the reference the engine is held against).
-    ``key`` is a ``sampling.prng_key``; sampled tokens follow
+    ``key`` is a ``ray_tpu_torch.random.prng_key``; sampled tokens follow
     ``jax.random.split`` and ``categorical`` as the JAX package draws
     them."""
     if temperature > 0 and key is None:
@@ -627,9 +627,9 @@ def generate(model: Llama, prompt_tokens, max_new: int = 32,
     out = [prompt_tokens]
     for j in range(max_new):
         if temperature > 0:
-            k0, k1 = sampling.split(key)
+            k0, k1 = trandom.split(key)
             key, sub = (k0[0], k1[0]), (k0[1], k1[1])
-            cur = sampling.categorical(sub, logits / temperature)
+            cur = trandom.categorical(sub, logits / temperature)
         else:
             cur = torch.argmax(logits, dim=-1)
         cur = cur.to(prompt_tokens.dtype)

@@ -1,0 +1,175 @@
+"""``jax.random``'s default PRNG, drawing the same bits as JAX 0.9.
+
+The pieces are threefry2x32 (20 rounds), ``PRNGKey`` of an int32 seed
+(negative ones too: the key is ``[0, seed mod 2**32]``), ``fold_in``,
+``split`` and ``random_bits``, and the draws built on them: ``uniform``,
+``randint``, ``choice`` (with replacement), ``permutation``, ``gumbel``
+and ``categorical``. The counter layout is the one of
+``jax_threefry_partitionable=True`` (the default since JAX 0.5, and what
+JAX 0.9 uses): element ``i`` of a draw takes ``y0 ^ y1`` of
+``threefry(key, (0, i))``. With the flag off JAX lays the counters out
+differently and the draws differ.
+
+A key is a pair of uint32 words. The words live in int64 tensors masked
+to 32 bits after every add and shift, since not every CUDA path has
+uint32. A key's words may carry leading dimensions: a batch of keys, as
+under ``jax.vmap``, each drawing its own block. Every function here is
+integer arithmetic plus a few fp32 operations, with no host sync, so it
+runs inside a CUDA graph.
+
+``uniform`` and ``randint`` follow ``jax/_src/random.py`` ``_uniform``
+and ``_randint`` operation for operation, so their draws are bit-equal.
+The Gumbel noise is ``-log(-log(u))``: PyTorch's and XLA's fp32 ``log``
+round differently in the last bit of some floats, so the noise agrees to
+about 1e-6 absolute and ``categorical`` differs only where two
+candidates tie within that.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+Key = Tuple[torch.Tensor, torch.Tensor]
+
+
+def threefry2x32(k0, k1, x0, x1) -> Key:
+    """Threefry-2x32, 20 rounds, on uint32 words held in int64 tensors
+    (broadcast together). The rounds work in place on the two fresh
+    state tensors: a draw of a [rows, vocab] block is tens of MB a word."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1).bitwise_and_(_MASK)
+            high = x1 << r  # rotate left by r within 32 bits
+            x1.bitwise_right_shift_(32 - r).bitwise_or_(high)
+            x1.bitwise_and_(_MASK).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK)
+        x1.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(_MASK)
+    return x0, x1
+
+
+def prng_key(seed, device=None) -> Key:
+    """``jax.random.PRNGKey`` of int32 seed(s): the words ``(0, seed mod
+    2**32)``, one key per element of ``seed``."""
+    s = torch.as_tensor(seed, device=device).to(torch.int64)
+    return torch.zeros_like(s), s & _MASK
+
+
+def fold_in(key: Key, data) -> Key:
+    """``jax.random.fold_in``: ``threefry(key, (0, data mod 2**32))``."""
+    d = torch.as_tensor(data, device=key[0].device).to(torch.int64) & _MASK
+    return threefry2x32(key[0], key[1], torch.zeros_like(d), d)
+
+
+def split(key: Key, num: int = 2) -> Key:
+    """``jax.random.split`` (partitionable layout): key ``i`` is
+    ``threefry(key, (0, i))``. Returns words of shape ``key + (num,)``;
+    ``take(keys, i)`` picks key ``i``."""
+    i = torch.arange(num, dtype=torch.int64, device=key[0].device)
+    return threefry2x32(key[0][..., None], key[1][..., None],
+                        torch.zeros_like(i), i)
+
+
+def take(keys: Key, i) -> Key:
+    """Key ``i`` along the last dimension of ``keys`` (as ``split`` made
+    them): ``jax.random.split(key)[i]``."""
+    return keys[0][..., i], keys[1][..., i]
+
+
+def random_bits(key: Key, shape: Sequence[int]) -> torch.Tensor:
+    """32 random bits for each position of ``shape``, for each key: int64
+    words of shape ``key + shape``. The counter of a position is its index
+    in the flattened ``shape`` (the partitionable layout)."""
+    shape = tuple(shape)
+    i = torch.arange(math.prod(shape), dtype=torch.int64,
+                     device=key[0].device).reshape(shape)
+    lift = (...,) + (None,) * len(shape)
+    y0, y1 = threefry2x32(key[0][lift], key[1][lift], torch.zeros_like(i), i)
+    return y0 ^ y1
+
+
+def uniform(key: Key, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """fp32 ``jax.random.uniform(key, shape, minval=, maxval=)``: the top
+    23 bits as a float in [1, 2), minus 1, times the fp32 span plus
+    ``minval``, floored at ``minval``.
+
+    XLA's CPU code fuses that product and sum into one fused multiply-add,
+    rounded once. So does this: the product of two fp32 values is exact
+    in float64, and so is its sum with ``minval`` while the result needs
+    at most 53 bits (ranges of moderate magnitude, such as every one the
+    port draws from; a ``minval`` of fp32 ``tiny`` only floors zero).
+    One rounding to fp32 then gives the fused result on any device."""
+    bits = (random_bits(key, shape) >> 9) | 0x3F800000
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    # The fp32 bounds and span, as host floats: no host-to-device copy,
+    # which a CUDA graph could not hold.
+    lo = np.float32(minval)
+    span, lo = float(np.float32(maxval) - lo), float(lo)
+    return torch.clamp_min((floats.double() * span + lo).float(), lo)
+
+
+def randint(key: Key, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """int32 ``jax.random.randint``, as int64: two 32-bit draws (keys
+    ``split(key)``) combined modulo the span, in uint32 arithmetic."""
+    span = maxval - minval if maxval > minval else 1
+    if not 0 < span <= _MASK:
+        raise ValueError(f"randint span {span} does not fit 32 bits")
+    keys = split(key)
+    higher = random_bits(take(keys, 0), shape)
+    lower = random_bits(take(keys, 1), shape)
+    multiplier = ((2 ** 16 % span) ** 2 & _MASK) % span  # uint32 wraps
+    offset = ((higher % span) * multiplier) & _MASK
+    offset = ((offset + lower % span) & _MASK) % span
+    return minval + offset
+
+
+def choice(key: Key, values: torch.Tensor,
+           shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.choice(key, values, shape)`` with replacement and no
+    weights: ``values[randint(key, shape, 0, len(values))]``."""
+    return values[randint(key, shape, 0, values.shape[0])]
+
+
+def permutation(key: Key, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (``_shuffle``): rounds of a
+    stable sort of ``arange(n)`` on fresh 32-bit keys, ``ceil(3 ln n /
+    ln(2**32 - 1))`` of them (two at n = 32768, one up to 1625). A batch
+    of keys gives a batch of permutations, int64 of shape ``key +
+    (n,)``."""
+    rounds = math.ceil(3 * math.log(max(1, n)) / math.log(_MASK))
+    x = torch.arange(n, device=key[0].device).expand(key[0].shape + (n,))
+    for _ in range(rounds):
+        keys = split(key)
+        key = take(keys, 0)
+        order = torch.argsort(random_bits(take(keys, 1), (n,)), dim=-1,
+                              stable=True)
+        x = torch.gather(x, -1, order)
+    return x
+
+
+def gumbel(key: Key, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.gumbel``: ``-log(-log(u))`` of ``uniform`` floored at
+    fp32 ``tiny``."""
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(uniform(key, shape, minval=tiny)))
+
+
+def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` over the last axis (Gumbel-max; ties go
+    to the first index). The key's dimensions are leading dimensions of
+    ``logits`` (one key per row, as under ``jax.vmap``); one key draws
+    the noise of all the rest of ``logits`` at once."""
+    shape = tuple(logits.shape[key[0].ndim:])
+    return torch.argmax(gumbel(key, shape) + logits, dim=-1)

@@ -8,6 +8,10 @@ there is over a pytree: ``init(params) -> state`` and
 ``update(updates, state, params) -> (updates, state)``. The learning-rate
 schedule is read at the count *before* it increments, as the reference
 does, so a warmup that starts at 0 gives a zero step first.
+
+``scale_by_adam`` and ``adam`` (the on-device PPO's optimizer) keep their
+count on the device and update their moments in place, so a CUDA graph
+that holds the state's addresses runs them on replay.
 """
 
 from __future__ import annotations
@@ -87,6 +91,34 @@ def scale_by_adam_lowmem(b1: float = 0.9, b2: float = 0.999,
     return GradientTransformation(init, update)
 
 
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                  eps_root: float = 0.0) -> GradientTransformation:
+    """The reference's ``scale_by_adam``: moments in the parameters' dtype,
+    bias-corrected with the count incremented first; ``eps`` outside the
+    square root, ``eps_root`` inside. The count is an int32 tensor on the
+    parameters' device, and the count and moments are updated in place."""
+
+    def init(params):
+        zeros = [torch.zeros_like(p) for p in params]
+        return {"count": torch.zeros((), dtype=torch.int32,
+                                     device=params[0].device),
+                "mu": zeros, "nu": [torch.zeros_like(p) for p in params]}
+
+    def update(updates, state, params=None):
+        count = state["count"].add_(1)
+        c1 = 1 - torch.pow(b1, count)
+        c2 = 1 - torch.pow(b2, count)
+        out = []
+        for g, m, v in zip(updates, state["mu"], state["nu"]):
+            m.copy_((1 - b1) * g + b1 * m)
+            v.copy_((1 - b2) * g ** 2 + b2 * v)
+            out.append((m / c1.to(m.dtype))
+                       / (torch.sqrt(v / c2.to(v.dtype) + eps_root) + eps))
+        return out, state
+
+    return GradientTransformation(init, update)
+
+
 def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     """Decoupled weight decay on every leaf (the reference's
     ``add_decayed_weights`` with no mask)."""
@@ -162,6 +194,16 @@ def adamw(learning_rate, b1: float = 0.9, b2: float = 0.999,
     """The reference's ``adamw``: moments in the parameters' dtype."""
     return chain(scale_by_adam_lowmem(b1, b2, eps, state_dtype=None),
                  add_decayed_weights(weight_decay),
+                 scale_by_learning_rate(learning_rate))
+
+
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, eps_root: float = 0.0) -> GradientTransformation:
+    """The reference's ``adam`` at a constant rate (a schedule reads a host
+    count, which a CUDA graph's replays would not advance)."""
+    if callable(learning_rate):
+        raise TypeError("adam takes a constant learning rate")
+    return chain(scale_by_adam(b1, b2, eps, eps_root),
                  scale_by_learning_rate(learning_rate))
 
 

@@ -246,3 +246,129 @@ def test_cuda_engine_graphs_match_eager_paths(cuda):
                              max_new=10)
         assert tokens["cuda"][i] == ref[0, len(prompts[i]):].tolist()
     assert tokens["cuda"][4] == tokens["cuda"][0]
+
+
+# -- remat and on-device PPO on the card --------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,k1_per_layer", [("mem2", 1), ("mem", 1),
+                                                 ("dots_attn", 1),
+                                                 ("full", 2), ("dots", 2)])
+def test_cuda_remat_kernel_launches(cuda, policy, k1_per_layer):
+    """One training step at gpt2-774m's depth (36 layers, narrow): K1
+    launches once a layer where the policy keeps attention (36 under
+    mem2) and twice where the backward recomputes it (72 under full and
+    dots); K2 and K3 once a layer under every policy. The loss and every
+    gradient equal the same step without remat (bf16: 2e-2 of each
+    gradient's largest entry)."""
+    from ray_tpu_torch.models import gpt2
+
+    grads, losses = {}, {}
+    for pol in (policy, "none"):
+        cfg = gpt2.GPT2Config(vocab_size=512, max_seq=128, num_layers=36,
+                              num_heads=2, d_model=128, remat_policy=pol)
+        model = gpt2.GPT2(cfg, torch.Generator().manual_seed(0)).to(
+            cuda).to(torch.bfloat16)
+        tokens = torch.randint(0, 512, (2, 129), device=cuda,
+                               generator=torch.Generator(
+                                   device=cuda).manual_seed(1))
+        tattn.reset_launch_counts()
+        loss = model.loss_fn({"tokens": tokens})
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = [f.launches for f in tattn.KERNEL_WRAPPERS]
+        expect = [36 * (k1_per_layer if pol == policy else 1), 36, 36]
+        assert counts == expect, (pol, counts)
+        losses[pol] = loss.item()
+        grads[pol] = [p.grad.float() for p in model.parameters()]
+    assert abs(losses[policy] - losses["none"]) < 1e-3
+    for a, b in zip(grads[policy], grads["none"]):
+        assert ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)) < 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_threefry_and_env_match_cpu(cuda):
+    """Draws (split, uniform, choice, permutation at 32768) and three
+    atari_sim steps, resets included: bit-equal on the card and on the
+    CPU for the same keys and actions."""
+    from ray_tpu_torch import random as trandom
+    from ray_tpu_torch.rllib import ondevice
+
+    cpu = torch.device("cpu")
+
+    def draws(d):
+        key = trandom.prng_key(77, d)
+        keys = trandom.split(key, 16)
+        vals = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=d)
+        return [torch.stack(keys, -1),
+                trandom.uniform(keys, (64, 2), 20.0, 60.0),
+                trandom.uniform(keys, (64, 4), -0.05, 0.05),
+                trandom.choice(key, vals, (64, 2)),
+                trandom.permutation(trandom.split(key, 2), 32768)]
+
+    for a, b in zip(draws(cuda), draws(cpu)):
+        assert torch.equal(a.cpu(), b)
+    envs = [ondevice.atari_sim(32, d) for d in (cuda, cpu)]
+    key = trandom.prng_key(3)
+    states = []
+    for env in envs:
+        state, _ = env.reset(tuple(w.to(env.device) for w in key))
+        state["t"][:8] = 998
+        states.append(state)
+    g = torch.Generator().manual_seed(4)
+    for _ in range(3):
+        key = trandom.take(trandom.split(key), 1)
+        actions = torch.randint(0, 6, (32,), generator=g)
+        outs = []
+        for i, env in enumerate(envs):
+            d = env.device
+            states[i], *out = env.step(states[i], actions.to(d),
+                                       tuple(w.to(d) for w in key))
+            outs.append(out)
+        for a, b in zip(*outs):
+            assert torch.equal(a.cpu(), b)
+        for k, v in states[1].items():
+            assert torch.equal(states[0][k].cpu(), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_name", ["JaxAtariSim", "JaxCartPole"])
+def test_cuda_ppo_graph_replay_matches_eager(cuda, env_name):
+    """One iteration replayed from the captured CUDA graph against one
+    eager iteration from the same state: the same actions, parameters and
+    metrics within 1e-3 relative (the conv backward may sum in another
+    order)."""
+    from ray_tpu_torch.rllib import ondevice
+    from ray_tpu_torch.rllib.sample_batch import ACTIONS
+
+    algo = ondevice.OnDevicePPO(ondevice.ENVS[env_name](16), rollout_length=8,
+                                minibatches=2, num_sgd_iter=2)
+    first = algo.iterate()  # eager, then the capture
+    assert algo._graph is not None
+    assert all(torch.isfinite(v) for v in first.values())
+    snap = algo.snapshot()
+    graph = {k: v.item() for k, v in algo.iterate().items()}
+    acts = algo.trajectory[ACTIONS].clone()
+    after = algo.snapshot()
+    algo.restore(snap)
+    eager = {k: v.item() for k, v in algo.iterate(graph=False).items()}
+    assert torch.equal(algo.trajectory[ACTIONS], acts)
+    for a, b in zip(after, algo.snapshot()):
+        if a.is_floating_point():
+            err = (a - b).abs().max() / b.abs().max().clamp_min(1e-12)
+            assert err < 1e-3
+        else:
+            assert torch.equal(a, b)
+    for k, v in eager.items():
+        assert abs(graph[k] - v) <= 1e-3 * max(abs(v), 1e-6), k
+
+
+@pytest.mark.cuda
+def test_cuda_ppo_entry_points_default_to_the_card(cuda):
+    from ray_tpu_torch.rllib import ondevice
+
+    algo = ondevice.OnDevicePPO(ondevice.cartpole(4), rollout_length=4,
+                                minibatches=1, num_sgd_iter=1)
+    assert all(p.device.type == "cuda" for p in algo.params.values())
+    m = algo.train_iteration()
+    assert m["timesteps_this_iter"] == 16

@@ -19,12 +19,23 @@ from ray_tpu.models import gpt2 as jgpt2
 from ray_tpu_torch import device as tdevice
 from ray_tpu_torch.models import gpt2 as tgpt2
 from ray_tpu_torch.models.common import param_count
+from ray_tpu_torch.ops import attention as tattn
 from ray_tpu_torch.models.convert import (gpt2_params_from_numpy,
                                           gpt2_tree_to_numpy,
                                           tensor_from_numpy)
 
 TINY = dict(vocab_size=128, max_seq=64, num_layers=2, num_heads=2,
             d_model=64)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two intra-op threads: at these sizes more buy little time and crowd
+    the test processes running beside this one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -35,11 +46,14 @@ def _full_fp32():
         yield
 
 
-def _pair(**kw):
+def _pair(remat_policy="none", **kw):
     jcfg = jgpt2.GPT2Config(**TINY, dtype=jnp.float32,
-                            attention_impl="flash", **kw)
+                            attention_impl="flash",
+                            remat=remat_policy != "none",
+                            remat_policy=remat_policy, **kw)
     tcfg = tgpt2.GPT2Config(**TINY, dtype=torch.float32,
-                            attention_impl="flash")
+                            attention_impl="flash",
+                            remat_policy=remat_policy)
     params, _ = jgpt2.init_params(jax.random.PRNGKey(0), jcfg)
     model = tgpt2.GPT2(tcfg)
     model.load_state_dict(gpt2_params_from_numpy(
@@ -67,6 +81,23 @@ def test_param_count_matches_config():
         int(np.prod(p.shape)) for p in jax.tree.leaves(params))
 
 
+def _grads(model):
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def _assert_grads_match_jax(grads_j, model, tcfg):
+    """Every gradient within 1e-4 of its largest JAX entry."""
+    grads_t = gpt2_tree_to_numpy(_grads(model), tcfg)
+    flat_j = jax.tree_util.tree_flatten_with_path(grads_j)[0]
+    for path, gj in flat_j:
+        gt = grads_t
+        for key in path:
+            gt = gt[key.key]
+        gj = np.asarray(gj)
+        err = np.abs(gt - gj).max() / max(np.abs(gj).max(), 1e-12)
+        assert err < 1e-4, (jax.tree_util.keystr(path), err)
+
+
 @pytest.mark.parametrize("loss_chunk", [4096, 24])
 def test_loss_and_grads_match_jax(loss_chunk):
     """loss_chunk 24 cuts 64 tokens into padded chunks (ignore_id path)."""
@@ -80,16 +111,67 @@ def test_loss_and_grads_match_jax(loss_chunk):
     loss_t.backward()
     np.testing.assert_allclose(float(loss_t.detach()), float(loss_j),
                                rtol=1e-5)
-    grads_t = gpt2_tree_to_numpy(
-        {n: p.grad for n, p in model.named_parameters()}, tcfg)
-    flat_j = jax.tree_util.tree_flatten_with_path(grads_j)[0]
-    for path, gj in flat_j:
-        gt = grads_t
-        for key in path:
-            gt = gt[key.key]
-        gj = np.asarray(gj)
-        err = np.abs(gt - gj).max() / max(np.abs(gj).max(), 1e-12)
-        assert err < 1e-4, (jax.tree_util.keystr(path), err)
+    _assert_grads_match_jax(grads_j, model, tcfg)
+
+
+POLICIES = ["full", "dots", "dots_attn", "mem", "mem2"]
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_remat_policy_matches_none_and_jax(policy, monkeypatch):
+    """Each remat policy: loss and every gradient equal the port's "none"
+    run (1e-6 relative, of each gradient's largest entry) and JAX's
+    ``loss_fn`` under the same policy (1e-5 on the loss, 1e-4 on each
+    gradient). The plain attention's forward runs once per layer where
+    the policy keeps attention (dots_attn, mem, mem2) and twice where the
+    backward recomputes it (full, dots)."""
+    jcfg, params, tcfg, model = _pair(policy)
+    _, _, _, plain = _pair()
+    batch = {"tokens": torch.from_numpy(_tokens())}
+    loss_none = plain.loss_fn(batch)
+    loss_none.backward()
+    forwards = []
+    fwd = tattn.mha_reference_with_lse
+    monkeypatch.setattr(tattn, "mha_reference_with_lse",
+                        lambda *a, **k: forwards.append(1) or fwd(*a, **k))
+    loss_t = model.loss_fn(batch)
+    loss_t.backward()
+    runs = 1 if "attn" in tgpt2.REMAT_KEEPS[policy] else 2
+    assert len(forwards) == runs * TINY["num_layers"]
+    assert abs(loss_t.item() - loss_none.item()) <= 1e-6 * loss_none.item()
+    want = _grads(plain)
+    for name, g in _grads(model).items():
+        err = ((g - want[name]).abs().max()
+               / want[name].abs().max().clamp_min(1e-12)).item()
+        assert err < 1e-6, (name, err)
+    loss_j, grads_j = jax.value_and_grad(
+        lambda p: jgpt2.loss_fn(p, {"tokens": jnp.asarray(_tokens())},
+                                jcfg))(params)
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-5)
+    _assert_grads_match_jax(grads_j, model, tcfg)
+
+
+def test_remat_saved_bytes_order():
+    """Bytes the forward leaves for the backward, counted by a
+    saved_tensors_hooks pack hook (each storage once): a checkpointed
+    region shows only its inputs, a kept attention its q, k, v, o, lse.
+    mem2 < mem < none, and full keeps least."""
+    batch = {"tokens": torch.from_numpy(_tokens())}
+    saved = {}
+    for policy in ["none", "mem", "mem2", "full"]:
+        model = _pair(policy)[3]
+        storages = {}
+
+        def pack(t):
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss = model.loss_fn(batch)
+        loss.backward()
+        saved[policy] = sum(storages.values())
+    assert saved["full"] < saved["mem2"] < saved["mem"] < saved["none"], saved
 
 
 def test_logits_match_jax():
@@ -117,12 +199,16 @@ def test_bf16_params_cross_bit_exact():
     (dict(attention_impl="ring"), "item 7"),
     (dict(attention_impl="ulysses"), "item 7"),
     (dict(num_experts=4), "item 7"),
-    (dict(remat_policy="dots"), "item 3b"),
 ])
 def test_unported_options_raise(kw, item):
     cfg = tgpt2.GPT2Config(**TINY, **kw)
     with pytest.raises(NotImplementedError, match=item):
         tgpt2.GPT2(cfg)
+
+
+def test_unknown_remat_policy_raises():
+    with pytest.raises(ValueError, match="remat_policy"):
+        tgpt2.GPT2(tgpt2.GPT2Config(**TINY, remat_policy="dot"))
 
 
 def test_sharding_rules_raise():

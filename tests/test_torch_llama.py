@@ -19,6 +19,7 @@ import torch
 from ray_tpu.llm import paged as jpaged
 from ray_tpu.models import llama as jl
 from ray_tpu_torch import device as tdevice
+from ray_tpu_torch import random as trandom
 from ray_tpu_torch.llm import paged as tpaged
 from ray_tpu_torch.llm import sampling
 from ray_tpu_torch.models import llama as tl
@@ -173,7 +174,7 @@ def test_generate_sampled_matches_jax(params, model):
                                   temperature=0.8,
                                   key=jax.random.PRNGKey(5)))
     got = tl.generate(model, torch.from_numpy(prompt), max_new=10,
-                      temperature=0.8, key=sampling.prng_key(5))
+                      temperature=0.8, key=trandom.prng_key(5))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -337,19 +338,19 @@ SEEDS = [0, 4242, 2**31 - 1, -7]
 @pytest.mark.parametrize("seed", SEEDS)
 def test_prng_words_match_jax(seed):
     """PRNGKey (negative seeds too), fold_in, split and uniform bits."""
-    key = sampling.prng_key(seed)
+    key = trandom.prng_key(seed)
     want = np.asarray(jax.random.key_data(jax.random.PRNGKey(seed)))
     assert [int(w) for w in key] == want.tolist()
     jkey = jax.random.fold_in(jax.random.PRNGKey(seed), 123)
-    k = sampling.fold_in(key, 123)
+    k = trandom.fold_in(key, 123)
     assert [int(w) for w in k] == np.asarray(
         jax.random.key_data(jkey)).tolist()
-    s0, s1 = sampling.split(k)
+    s0, s1 = trandom.split(k)
     want = np.asarray(jax.random.key_data(jax.random.split(jkey)))
     assert np.array_equal(np.stack([s0.numpy(), s1.numpy()], -1), want)
     tiny = np.finfo(np.float32).tiny
     want = np.asarray(jax.random.uniform(jkey, (3, 700), minval=tiny))
-    got = sampling.uniform(k, (3, 700)).numpy()
+    got = trandom.uniform(k, (3, 700), minval=tiny).numpy()
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
@@ -396,12 +397,12 @@ def test_gumbel_noise_close_to_jax():
     the outer log turns into an absolute error of about 1e-6."""
     tiny = np.finfo(np.float32).tiny
     jkey = jax.random.fold_in(jax.random.PRNGKey(1), 7)
-    key = sampling.fold_in(sampling.prng_key(1), 7)
+    key = trandom.fold_in(trandom.prng_key(1), 7)
     np.testing.assert_array_equal(
-        sampling.uniform(key, (100_000,)).numpy(),
+        trandom.uniform(key, (100_000,), minval=tiny).numpy(),
         np.asarray(jax.random.uniform(jkey, (100_000,), minval=tiny)))
     want = np.asarray(jax.random.gumbel(jkey, (100_000,)))
-    got = sampling.gumbel(key, (100_000,)).numpy()
+    got = trandom.gumbel(key, (100_000,)).numpy()
     assert np.abs(got - want).max() <= 2e-6
 
 
