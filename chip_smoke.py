@@ -6,26 +6,43 @@
 Phases; any failure exits non-zero:
 
   1. the card's name and power limit (nvidia-smi);
-  2. builds the three CUDA kernels from ray_tpu_torch/ops/csrc (nvcc, one
-     process per source, in parallel);
-  3. holds each kernel against its plain PyTorch version on the card, K1
-     flash_fwd, K2 flash_bwd_dkdv and K3 flash_bwd_dq on the same inputs:
-     [8,12,1024,64] bf16 causal (GPT-2 124M's shape), fp16, non-causal
-     ragged, causal Sq < Sk and Sq > Sk, D 128 (bf16 causal, and fp16
-     non-causal with Sq != Sk), and a row length of one tile plus one;
-     then all three through autograd against fp32 autograd of the plain
-     attention;
+  2. builds the six CUDA kernels from ray_tpu_torch/ops/csrc (nvcc, one
+     process per source, in parallel): the Hopper kernels K1 flash_fwd, K2
+     flash_bwd_dkdv and K3 flash_bwd_dq (bf16/fp16 at head_dim 64 or 128)
+     and the general kernels K4-K6 (*_general: fp32, or any other head_dim
+     up to 256);
+  3. holds each kernel against its plain PyTorch version on the card, on
+     the same inputs; the kernels run on the whole tensors and are
+     compared a chunk of (b, h) slices at a time (near 2 GB of the plain
+     versions' fp32 scores a chunk). K1-K3: [8,12,1024,64] bf16 causal
+     (GPT-2 124M's shape), fp16, non-causal ragged, causal Sq < Sk and
+     Sq > Sk, D 128 (bf16 causal, and fp16 non-causal with Sq != Sk), and
+     a row length of one tile plus one; then all three through autograd
+     against fp32 autograd of the plain attention; then, with the same
+     tolerances, each training path's own shape: [8,20,1024,64]
+     (gpt2-774m), [4,25,1024,64] (gpt2-1.5b), [4,16,4096,64],
+     [2,16,8192,64] and [1,16,16384,64] causal (bench_long_context's
+     points, where the reference runs _flash_fwd_kernel), [1,2,4096,64]
+     non-causal, and [64,12,197,64] non-causal (ViT-B/16; ~15-30 s). K4-K6:
+     llama-tiny's [2,4,64,16] fp32 causal, fp32 at D 64, 128 and 256 and
+     at D 1, bf16 at D 32, fp16 at D 80, and [8,12,1024,64] fp32 (fp32
+     within 1e-5, 16-bit within phase 3's tolerance; ~2 s);
   4. after a second of warm-up, times each kernel at the GPT-2 shape
      (device time per call, from torch.profiler) beside its plain
      version, its bound from the data-sheet peaks, and
      F.scaled_dot_product_attention's forward and backward as yardsticks
      (never used by the port), and prints K1 / SDPA forward and K2 / SDPA
-     backward;
+     backward; then K1, K2, K3 and SDPA's forward and backward at
+     [1,16,16384,64] bf16 causal, each beside its bound; then K4-K6 at
+     llama-tiny's shape and at [8,12,1024,64] fp32, against their plain
+     versions, SDPA's fp32 forward and their bound at the fp32 rate of the
+     CUDA cores;
   5. checks a tiny GPT-2 training step through the kernels against the
      same step through the plain attention, then trains gpt2-124m (bf16,
      fp32 master, adamw_lowmem, batch 8, seq 1024) for 2 + 5 steps with
      the launch counters reset just before, and checks every loss is
-     finite and every layer launched each kernel once per step;
+     finite, every layer launched each kernel once per step and no call
+     went to the general kernels;
   6. serves llama-1b at full width (22 layers, d 2048, 32 heads, 4 KV
      heads, vocab 32000; bf16, random weights from torch.Generator seed 0):
      holds K1 against the plain attention on layer 0's q/k/v of a
@@ -68,14 +85,46 @@ Between phases 5 and 6 it also trains gpt2-774m at bench.py's configuration
 bench.py's tokens): 2 + 5 steps, step time, MFU and peak memory, and
 K1-K3 launches per step counted from zero (36 each: mem2 keeps attention);
 then the same under remat_policy="none", whose losses must equal mem2's
-to 1e-3 and whose peak memory must be larger.
+to 1e-3 and whose peak memory must be larger (~15-40 s). Then:
+
+  - gpt2-1.5b at bench_15b's configuration (48 layers, d 1600, 25 heads,
+    bf16 parameters through cast_floating, mem2, adafactor(1e-4) without
+    an fp32 master, batch 4, seq 1024, tokens from default_rng(0)): 2 + 5
+    steps; step ms, tokens/s, MFU against 989 TFLOP/s, peak memory,
+    Adafactor's state bytes beside AdamW-bf16's 2 x 2 x N, losses (finite,
+    the first within 1 of ln 50304), 48 launches of each kernel a step
+    and no general kernel (~20-40 s, most of it the CPU init);
+  - bench_long_context's points, gpt2-355m at (seq, batch) (4096, 4),
+    (8192, 2), (16384, 1), the same recipe with max_seq = seq, 2 + 4 steps
+    each: tokens/s, MFU, peak memory, 24 launches of each kernel a step
+    (~15-30 s);
+  - ViT-B/16 at 224 x 224 (S 197, bf16, fp32 master, default_optimizer,
+    batch 64, remat): 2 + 5 steps, images/s, MFU (6N + 12·L·d·S a token
+    at S = 197), peak memory, a first loss near ln 1000, K1 24 and K2, K3
+    12 launches a step, no general kernel (~5-15 s);
+  - resnet18-cifar (fp32, batch 128, 32 x 32, default_optimizer, the
+    batch statistics carried): 2 + 5 steps, images/s, peak memory, the
+    first loss near ln 10 and the fp32 settings the convs ran under
+    (~5-10 s);
+  - fault C3: llama-tiny (fp32, head_dim 16) loss and gradients on the
+    card against the CPU (1e-5 and 1e-4): each layer launches K4, K5 and
+    K6 once, with the counts set to 0 just before, and no Hopper kernel
+    (~1 s).
+
+The llama-1b serving phase and every training phase above require that
+no general kernel was launched: every bench path runs K1-K3.
 
 ``--profile`` adds torch.profiler breakdowns (device time by kernel) of
 one training step to chiprun_out/chip_smoke_profile.txt, of one eager
 llama-1b decode step to chiprun_out/chip_smoke_profile_llama.txt, and of
 one training step of gpt2-774m under each policy to
-chiprun_out/chip_smoke_profile_774m_<policy>.txt, and of one replayed and
-one eager PPO iteration to chiprun_out/chip_smoke_profile_ppo_<how>.txt.
+chiprun_out/chip_smoke_profile_774m_<policy>.txt, of one step of
+gpt2-1.5b, of gpt2-355m at seq 16384 and of ViT-B/16
+(chip_smoke_profile_gpt2-1.5b_s1024.txt, ..._gpt2-355m_s16384.txt,
+..._vit.txt), and of one replayed and one eager PPO iteration to
+chiprun_out/chip_smoke_profile_ppo_<how>.txt; it also counts the kernels
+and device time of one Adafactor update (with its p + u) at gpt2-1.5b and
+at gpt2-355m seq 16384.
 """
 
 import copy
@@ -89,6 +138,7 @@ import sys
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
+PEAK_FP32_FLOPS = 67e12   # H100 SXM fp32 on the CUDA cores (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3 (data sheet)
 
 # Tolerances, as the largest |kernel - reference| over the largest
@@ -96,6 +146,7 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3 (data sheet)
 TOL_VS_PLAIN = 1e-2      # kernel vs its plain version, same bf16 inputs
 TOL_VS_FP32 = 2e-2       # kernel vs fp32 autograd of the plain attention
 TOL_LSE = 1e-3           # absolute, fp32 lse (natural log units)
+TOL_VS_PLAIN_FP32 = 1e-5  # general kernels on fp32 inputs: sum order only
 TOL_E2E_LOSS = 1e-2      # tiny GPT-2: kernels vs plain attention, relative
 TOL_E2E_GRAD = 5e-2      # same, per-parameter gradient, relative to max
 # llama-1b serving checks, as the largest |logit difference| over the
@@ -118,6 +169,8 @@ TOL_PPO_NET = 5e-2
 TOL_GAE = 1e-5
 TOL_GRAPH = 1e-3
 GUMBEL_ABS = 2e-6  # the card's and the CPU's fp32 log may differ an ulp
+# Fault C3's phase: llama-tiny's loss at this batch and sequence length.
+C3_BATCH, C3_SEQ = 2, 64
 # bench.py's bench_ppo: envs, rollout length, epochs, minibatches.
 PPO_SHAPE = (256, 128, 4, 8)
 
@@ -142,9 +195,18 @@ def ptxas_report(log):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            ty = "bf16" if "Bf16" in name or "BF16" in name else "fp16"
-            d = re.search(r"ELi(\d+)E", name)
-            inst = f"{ty}_d{d.group(1) if d else '?'}"
+            # Hopper kernels: sm90::Bf16/Fp16 and D; general kernels:
+            # float/__nv_bfloat16/__half and DL = ceil(D / 32).
+            if "Bf16" in name or "bfloat16" in name:
+                ty = "bf16"
+            elif "Fp16" in name or "half" in name:
+                ty = "fp16"
+            else:
+                ty = "fp32"
+            d = (re.search(r"ELi(\d+)E", name)
+                 or re.search(r"Li(\d+)EEEv", name))
+            inst = (f"{ty}_{'dl' if 'general' in name else 'd'}"
+                    f"{d.group(1) if d else '?'}")
             out[inst] = dict(registers=None, smem_static=0, spill_stores=0,
                              spill_loads=0)
             continue
@@ -202,8 +264,8 @@ def causal_pairs(sq, sk, causal):
     return sum(min(i + 1, sk) for i in range(sq))
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -219,7 +281,7 @@ def main(argv):
     sys.path.insert(0, root)
     import torch.nn.functional as F
 
-    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models import gpt2, llama
     from ray_tpu_torch.models.common import param_count
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as A
@@ -256,6 +318,7 @@ def main(argv):
                   f"{r['spill_loads']}")
 
     # -- 3. kernels against their plain versions ----------------------------
+    t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rand(*shape, dtype=torch.bfloat16):
@@ -263,48 +326,16 @@ def main(argv):
 
     B, H, S, D = 8, 12, 1024, 64  # gpt2-124m at batch 8, seq 1024
     scale = D ** -0.5
-    errs = {}
     # (b, h, sq, sk, d, causal, dtype): the GPT-2 shape first, then fp16,
     # non-causal ragged, causal Sq < Sk and Sq > Sk, D 128, a row length
     # of one tile plus one, and an Sq whose lse rows need padding for TMA.
     bf, fp = torch.bfloat16, torch.float16
-    for (b, h, sq, sk, d, causal, dt) in [
-            (B, H, S, S, D, True, bf), (2, 4, 1024, 1024, 64, True, fp),
-            (2, 4, 1000, 1000, 64, False, bf), (2, 4, 384, 1024, 64, True, bf),
-            (2, 4, 1024, 384, 64, True, bf), (2, 4, 512, 512, 128, True, bf),
-            (2, 4, 333, 200, 128, False, fp), (1, 2, 129, 129, 64, True, bf)]:
-        q, k, v = rand(b, h, sq, d, dtype=dt), rand(b, h, sk, d, dtype=dt), \
-            rand(b, h, sk, d, dtype=dt)
-        do = rand(b, h, sq, d, dtype=dt)
-        sc = d ** -0.5
-        o, lse = A.flash_fwd(q, k, v, causal, sc)
-        ro, rlse = A.mha_reference_with_lse(q, k, v, causal, sc)
-        delta = (do.float() * o.float()).sum(-1)
-        dk, dv = A.flash_bwd_dkdv(q, k, v, do, lse, delta, causal, sc)
-        dq = A.flash_bwd_dq(q, k, v, do, lse, delta, causal, sc)
-        rdk, rdv = A.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal,
-                                              sc)
-        rdq = A.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, sc)
-        torch.cuda.synchronize()
-        e_lse = (lse - rlse).abs().max().item()
-        e = {n: rel_err(a, r) for n, a, r in (("o", o, ro), ("dk", dk, rdk),
-                                              ("dv", dv, rdv),
-                                              ("dq", dq, rdq))}
-        print(f"check [{b},{h},{sq},{sk},{d}] causal={causal} "
-              f"{str(dt).split('.')[-1]}: K1 o {e['o']:.3e} lse abs "
-              f"{e_lse:.3e}; K2 dk {e['dk']:.3e} dv {e['dv']:.3e}; K3 dq "
-              f"{e['dq']:.3e} (rel tol {TOL_VS_PLAIN}, lse tol {TOL_LSE})")
-        require(e_lse < TOL_LSE and max(e.values()) < TOL_VS_PLAIN,
-                f"kernels vs plain at [{b},{h},{sq},{sk},{d}] causal={causal}"
-                f" {dt}")
-        if (b, sq) == (B, S):
-            errs["flash_fwd"] = (o.float() - ro.float()).abs().max().item()
-            errs["flash_bwd_dkdv"] = max(
-                (dk.float() - rdk.float()).abs().max(),
-                (dv.float() - rdv.float()).abs().max()).item()
-            errs["flash_bwd_dq"] = (
-                dq.float() - rdq.float()).abs().max().item()
-            slice_inputs = (q, k, v, do, lse, delta)
+    errs = check_kernels(torch, A, [(B, H, S, S, D, True, bf)], gen)
+    check_kernels(torch, A, [
+        (2, 4, 1024, 1024, 64, True, fp), (2, 4, 1000, 1000, 64, False, bf),
+        (2, 4, 384, 1024, 64, True, bf), (2, 4, 1024, 384, 64, True, bf),
+        (2, 4, 512, 512, 128, True, bf), (2, 4, 333, 200, 128, False, fp),
+        (1, 2, 129, 129, 64, True, bf)], gen)
 
     for (b, h, sq, d) in [(B, H, S, D), (2, 4, 1000, 64), (2, 4, 512, 128)]:
         xs = [rand(b, h, sq, d).requires_grad_() for _ in range(3)]
@@ -318,9 +349,46 @@ def main(argv):
             print(f"check autograd {name} [{b},{h},{sq},{d}] vs fp32 plain "
                   f"autograd: rel {e:.3e} (tol {TOL_VS_FP32})")
             require(e < TOL_VS_FP32, f"autograd {name}")
-    q, k, v, do, lse, delta = slice_inputs
+    q, k, v, do = (rand(B, H, S, D) for _ in range(4))
+    o, lse = A.flash_fwd(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    print(f"phase 3 (kernel checks at the GPT-2 shapes): "
+          f"{time.perf_counter() - t0:.3f} s wall")
+
+    # -- 3b. every training path's own shape: gpt2-774m, gpt2-1.5b, the
+    # long-context points (Sk > 2048 is where the reference runs
+    # _flash_fwd_kernel) and ViT-B/16 -------------------------------------
+    t0 = time.perf_counter()
+    path_errs = check_kernels(torch, A, [
+        (8, 20, 1024, 1024, 64, True, bf), (4, 25, 1024, 1024, 64, True, bf)],
+        gen)
+    long_errs = check_kernels(torch, A, [
+        (4, 16, 4096, 4096, 64, True, bf), (2, 16, 8192, 8192, 64, True, bf),
+        (1, 16, 16384, 16384, 64, True, bf),
+        (1, 2, 4096, 4096, 64, False, bf)], gen)
+    vit_errs = check_kernels(torch, A, [(64, 12, 197, 197, 64, False, bf)],
+                             gen)
+    print(f"phase 3b (the training paths' shapes): "
+          f"{time.perf_counter() - t0:.3f} s wall")
+
+    # -- 3c. the general kernels: llama-tiny's shape first, then fp32 at D
+    # 64, 128 and 256, bf16 at D 32, fp16 at D 80, and D 1 ---------------
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    tiny_llama = llama.CONFIGS["llama-tiny"]
+    c3_shape = (C3_BATCH, tiny_llama.num_heads, C3_SEQ, tiny_llama.head_dim)
+    general_errs = check_kernels(torch, A, [
+        c3_shape[:3] + (C3_SEQ, tiny_llama.head_dim, True, tiny_llama.dtype),
+        (2, 4, 200, 130, 64, True, f32),
+        (2, 4, 130, 200, 128, False, f32), (2, 4, 100, 100, 32, False, bf),
+        (2, 4, 70, 150, 80, True, fp), (1, 2, 48, 48, 256, True, f32),
+        (1, 2, 33, 33, 1, True, f32), (8, 12, 1024, 1024, 64, True, f32)],
+        gen, general=True)
+    print(f"phase 3c (general kernels): {time.perf_counter() - t0:.3f} s "
+          "wall")
 
     # -- 4. timings at the GPT-2 shape --------------------------------------
+    t_timing = time.perf_counter()
     # The card's clocks ramp up under load: without this the first kernel
     # timed reads up to half again slower than the rest.
     warm = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
@@ -391,6 +459,10 @@ def main(argv):
           f"{timing['flash_bwd_dkdv']['ms'] / sdpa_bwd:.3f}; K2+K3 / SDPA "
           f"backward {pair_ms / sdpa_bwd:.3f}")
     del out, xs
+    long_s = long_s_timings(torch, A, gen)
+    general_time = general_timings(torch, A, gen, c3_shape)
+    general_time_gpt2 = general_timings(torch, A, gen, (8, 12, 1024, 64))
+    print(f"phase 4 (timings): {time.perf_counter() - t_timing:.3f} s wall")
 
     # -- 5a. tiny GPT-2 step: kernels against the plain attention ------------
     tiny = dict(vocab_size=512, max_seq=128, num_layers=2, num_heads=2,
@@ -420,6 +492,7 @@ def main(argv):
     del models
 
     # -- 5b. the main path: gpt2-124m training --------------------------------
+    t_phase = time.perf_counter()
     base = gpt2.CONFIGS["gpt2-124m"]
     cfg = gpt2.GPT2Config(vocab_size=base.vocab_size, max_seq=1024,
                           num_layers=base.num_layers,
@@ -444,23 +517,10 @@ def main(argv):
     torch.cuda.reset_peak_memory_stats()
 
     A.reset_launch_counts()
-    losses, norms = [], []
-    for _ in range(warm):
-        model, opt_state, step, met = step_fn(model, opt_state, step, data)
-        losses.append(met["loss"])
-        norms.append(met["grad_norm"])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        model, opt_state, step, met = step_fn(model, opt_state, step, data)
-        losses.append(met["loss"])
-        norms.append(met["grad_norm"])
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
+    (model, opt_state, step), losses, norms, elapsed = run_steps(
+        torch, step_fn, (model, opt_state, step), data, warm, steps)
     launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
-
-    losses = [x.item() for x in losses]
-    norms = [x.item() for x in norms]
+    general = general_launches(A)
     print(f"losses {losses}")
     print(f"grad norms {norms}")
     require(all(math.isfinite(x) for x in losses + norms), "finite losses")
@@ -470,8 +530,9 @@ def main(argv):
     n = warm + steps
     expect = n * cfg.num_layers
     print(f"launches over {n} steps: {launches} (expect {expect} each: "
-          f"one per layer per step)")
+          f"one per layer per step); general kernels {general}")
     require(all(v == expect for v in launches.values()), "launch counts")
+    require(general == 0, "gpt2-124m: no general kernel")
 
     step_ms = elapsed / steps * 1e3
     tok_s = batch * seq * steps / elapsed
@@ -485,10 +546,29 @@ def main(argv):
         profile_step(torch, step_fn, model, opt_state, step, data, root)
     del model, opt_state, data
     torch.cuda.empty_cache()
+    print(f"gpt2-124m phase: {time.perf_counter() - t_phase:.3f} s wall")
+    prof = root if "--profile" in argv else None
 
     # -- 5c. gpt2-774m at bench.py's configuration -----------------------------
-    launches_774m, train_774m = gpt2_774m_phase(
-        torch, A, profile_root=root if "--profile" in argv else None)
+    launches_774m, train_774m = gpt2_774m_phase(torch, A, profile_root=prof)
+
+    # -- 5d. gpt2-1.5b at bench_15b's configuration ----------------------------
+    train_15b = adafactor_gpt2(torch, A, "gpt2-1.5b", 1024, 4, 2, 5,
+                               profile_root=prof)
+
+    # -- 5e. bench_long_context's three points ---------------------------------
+    long_ctx = {}
+    for seq, batch in ((4096, 4), (8192, 2), (16384, 1)):
+        long_ctx[seq] = adafactor_gpt2(
+            torch, A, "gpt2-355m", seq, batch, 2, 4,
+            profile_root=prof if seq == 16384 else None)
+
+    # -- 5f. ViT-B/16 and ResNet-18 ----------------------------------------------
+    train_vit = vit_phase(torch, A, profile_root=prof)
+    train_resnet = resnet_phase(torch)
+
+    # -- 5g. fault C3: an fp32, head_dim-16 model on the card ------------------
+    c3_launches = c3_phase(torch, A, dev)
 
     # -- 6. llama-1b serving ----------------------------------------------------
     llama_k1 = serve_phase(torch, A, dev,
@@ -499,9 +579,19 @@ def main(argv):
                     profile_root=root if "--profile" in argv else None)
     print(f"north-star paths on {card}: gpt2-774m/mem2 step "
           f"{train_774m['step_ms']:.3f} ms, MFU {train_774m['mfu_pct']:.3f}%, "
-          f"peak memory {train_774m['peak_gb']:.3f} GB; ppo-atari-256 "
+          f"peak memory {train_774m['peak_gb']:.3f} GB; gpt2-1.5b (bench_15b)"
+          f" step {train_15b['step_ms']:.3f} ms, MFU "
+          f"{train_15b['mfu_pct']:.3f}%, peak memory "
+          f"{train_15b['peak_gb']:.3f} GB; ppo-atari-256 "
           f"{ppo['env_steps_s']:.1f} env-steps/s, an iteration "
           f"{ppo['iteration_ms']:.4f} ms on CUDA events")
+    print("other training paths on " + card + ": " + "; ".join(
+        f"gpt2-355m seq {seq}: {r['tokens_s']:.1f} tokens/s, MFU "
+        f"{r['mfu_pct']:.3f}%, peak memory {r['peak_gb']:.3f} GB"
+        for seq, r in long_ctx.items())
+        + f"; vit-b16: {train_vit['images_s']:.1f} images/s, MFU "
+        f"{train_vit['mfu_pct']:.3f}%; resnet18-cifar: "
+        f"{train_resnet['images_s']:.1f} images/s")
 
     # -- 8. the record --------------------------------------------------------
     kernels = []
@@ -514,10 +604,33 @@ def main(argv):
     # K1 on the llama-1b check (forward at [1, 32, 128, 64]), apart from
     # the GPT-2 training step's launches.
     kernels[0]["launches_llama"] = llama_k1
-    # Per step of gpt2-774m, by remat policy.
+    # Per step of gpt2-774m, by remat policy, and of this slice's paths.
     for k in kernels:
+        name = k["name"]
         k["launches_gpt2_774m_per_step"] = {
-            policy: n[k["name"]] for policy, n in launches_774m.items()}
+            policy: n[name] for policy, n in launches_774m.items()}
+        k["launches_gpt2_1.5b_per_step"] = train_15b["launches"][name]
+        k["launches_long_context_per_step"] = {
+            seq: r["launches"][name] for seq, r in long_ctx.items()}
+        k["launches_vit_b16_per_step"] = train_vit["launches"][name]
+        # At bench_long_context's longest point, and the largest errors of
+        # the long-S (S 4096-16384) and ViT-shape checks.
+        k["long_s"] = dict(long_s[name], max_abs_err=long_errs[name],
+                           max_abs_err_vit_shape=vit_errs[name])
+        k["max_abs_err_gpt2_774m_1.5b_shapes"] = path_errs[name]
+    # K4-K6: their path is fault C3's phase (llama-tiny fp32 on the card),
+    # timed at its shape and, for scale, at GPT-2 124M's shape in fp32.
+    for name, rep_ in (("flash_fwd_general", rows["flash_fwd"]),
+                       ("flash_bwd_dkdv_general", rows["flash_bwd_dkdv"]),
+                       ("flash_bwd_dq_general", rows["flash_bwd_dq"])):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"ray_tpu_torch/ops/csrc/{name}.cu",
+            replaces=rep_["replaces"] + ", for fp32 and head dims other "
+                                        "than 64 and 128",
+            launches=c3_launches[name], max_abs_err=general_errs[name],
+            **general_time[name], design="simt", ptxas=ptxas[name],
+            shape=list(c3_shape), at_gpt2_124m_fp32=general_time_gpt2[name]))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
@@ -567,19 +680,8 @@ def gpt2_774m_phase(torch, A, profile_root=None):
             t_init = time.perf_counter() - t0
             torch.cuda.reset_peak_memory_stats()
             A.reset_launch_counts()
-            out = []
-            for _ in range(warm):
-                model, opt_state, step, met = step_fn(model, opt_state, step,
-                                                      data)
-                out.append(met["loss"])
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            for _ in range(steps):
-                model, opt_state, step, met = step_fn(model, opt_state, step,
-                                                      data)
-                out.append(met["loss"])
-            torch.cuda.synchronize()
-            elapsed = time.perf_counter() - t1
+            (model, opt_state, step), losses[policy], _, elapsed = run_steps(
+                torch, step_fn, (model, opt_state, step), data, warm, steps)
         except torch.cuda.OutOfMemoryError:
             require(policy != "mem2", "gpt2-774m under mem2 fits the card")
             print(f"gpt2-774m remat {policy}: out of memory; not run")
@@ -589,7 +691,8 @@ def gpt2_774m_phase(torch, A, profile_root=None):
         n = warm + steps
         launches[policy] = {f.__name__: f.launches / n
                             for f in A.KERNEL_WRAPPERS}
-        losses[policy] = [x.item() for x in out]
+        require(general_launches(A) == 0,
+                f"gpt2-774m {policy}: no general kernel")
         peaks[policy] = torch.cuda.max_memory_allocated() / 1e9
         step_ms = elapsed / steps * 1e3
         tok_s = batch * seq * steps / elapsed
@@ -954,8 +1057,9 @@ def serve_phase(torch, A, dev, profile_root=None):
     torch.cuda.synchronize()
     k1 = A.flash_fwd.launches
     print(f"{name} forward [1, {prompt_len}]: K1 launches {k1} (expect "
-          f"{cfg.num_layers})")
+          f"{cfg.num_layers}); general kernels {general_launches(A)}")
     require(k1 == cfg.num_layers, "K1 launches on the llama forward")
+    require(general_launches(A) == 0, f"{name}: no general kernel")
     # fp32 yardstick: the same (bf16-valued) weights with fp32 activations
     # and the plain attention.
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
@@ -1204,6 +1308,487 @@ def profile_step(torch, step_fn, model, opt_state, step, data, root,
         f.write(table)
     print(f"profile of one step (top 40 by device time) written to "
           f"chiprun_out/{name}")
+
+
+def tensor_bytes(tree):
+    """Bytes of every tensor in a nest of dicts, lists and tuples."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return 0
+
+
+def check_kernels(torch, A, shapes, gen, general=False):
+    """K1, K2 and K3 (K4, K5 and K6 with ``general``) against their plain
+    versions on the same inputs, at each (b, h, sq, sk, d, causal, dtype).
+    The kernels run on the whole [b, h, s, d] tensors; their outputs are
+    held against the plain versions a few (b, h) slices at a time, so the
+    plain versions' fp32 scores stay near 2 GB a chunk. Phase 3's
+    tolerances (fp32 inputs: TOL_VS_PLAIN_FP32). Returns each kernel's
+    largest absolute error over the shapes."""
+    kernels = A.GENERAL_WRAPPERS if general else A.KERNEL_WRAPPERS
+    fwd, dkdv, dq_of = kernels
+    dev = gen.device
+    worst = {f.__name__: 0.0 for f in kernels}
+    for (b, h, sq, sk, d, causal, dt) in shapes:
+        q, do = (torch.randn((b, h, sq, d), generator=gen, device=dev,
+                             dtype=dt) for _ in range(2))
+        k, v = (torch.randn((b, h, sk, d), generator=gen, device=dev,
+                            dtype=dt) for _ in range(2))
+        sc = d ** -0.5
+        o, lse = fwd(q, k, v, causal, sc)
+        delta = (do.float() * o.float()).sum(-1)
+        dk, dv = dkdv(q, k, v, do, lse, delta, causal, sc)
+        dq = dq_of(q, k, v, do, lse, delta, causal, sc)
+        flat = [t.reshape(1, b * h, *t.shape[2:])
+                for t in (q, k, v, do, lse, delta, o, dk, dv, dq)]
+        diff = dict.fromkeys(("o", "dk", "dv", "dq"), 0.0)
+        top = dict.fromkeys(diff, 0.0)
+        e_lse = 0.0
+
+        def add(name, got, ref):
+            diff[name] = max(diff[name],
+                             (got.float() - ref.float()).abs().max().item())
+            top[name] = max(top[name], ref.float().abs().max().item())
+
+        per = max(1, (1 << 31) // (sq * sk * 4))
+        for c0 in range(0, b * h, per):
+            fq, fk, fv, fdo, flse, fdelta, fo, fdk, fdv, fdq = (
+                t[:, c0:c0 + per] for t in flat)
+            ro, rlse = A.mha_reference_with_lse(fq, fk, fv, causal, sc)
+            add("o", fo, ro)
+            e_lse = max(e_lse, (flse - rlse).abs().max().item())
+            del ro, rlse
+            rdk, rdv = A.flash_bwd_dkdv_reference(fq, fk, fv, fdo, flse,
+                                                  fdelta, causal, sc)
+            add("dk", fdk, rdk)
+            add("dv", fdv, rdv)
+            del rdk, rdv
+            add("dq", fdq, A.flash_bwd_dq_reference(fq, fk, fv, fdo, flse,
+                                                    fdelta, causal, sc))
+        torch.cuda.synchronize()
+        e = {n: diff[n] / max(top[n], 1e-12) for n in diff}
+        tol = TOL_VS_PLAIN_FP32 if dt == torch.float32 else TOL_VS_PLAIN
+        tag = "K4-K6" if general else "K1-K3"
+        print(f"check {tag} [{b},{h},{sq},{sk},{d}] causal={causal} "
+              f"{str(dt).split('.')[-1]} (plain a chunk of {min(per, b * h)}"
+              f" heads): o {e['o']:.3e} lse abs {e_lse:.3e}; dk "
+              f"{e['dk']:.3e} dv {e['dv']:.3e}; dq {e['dq']:.3e} (rel tol "
+              f"{tol}, lse tol {TOL_LSE})")
+        require(e_lse < TOL_LSE and max(e.values()) < tol,
+                f"{tag} vs plain at [{b},{h},{sq},{sk},{d}] causal={causal}"
+                f" {dt}")
+        for f, a in zip(kernels, (diff["o"], max(diff["dk"], diff["dv"]),
+                                  diff["dq"])):
+            worst[f.__name__] = max(worst[f.__name__], a)
+        del q, k, v, do, o, lse, delta, dk, dv, dq, flat
+        torch.cuda.empty_cache()
+    return worst
+
+
+def general_launches(A):
+    """Launches of K4-K6 since the counts were last reset."""
+    return sum(f.launches for f in A.GENERAL_WRAPPERS)
+
+
+def general_timings(torch, A, gen, shape):
+    """K4, K5 and K6 at fp32 causal ``shape`` [b, h, s, d]: device time a
+    call beside the plain version, the bound (fp32 operations on the CUDA
+    cores, fp32 bytes) and SDPA's fp32 forward as the forward's yardstick."""
+    import torch.nn.functional as F
+
+    b, h, s, d = shape
+    sc = d ** -0.5
+    q, k, v, do = (torch.randn(shape, generator=gen, device=gen.device)
+                   for _ in range(4))
+    o, lse = A.flash_fwd_general(q, k, v, True, sc)
+    delta = (do.float() * o.float()).sum(-1)
+    pairs = b * h * causal_pairs(s, s, True)
+    elem, stat = b * h * s * d * 4, b * h * s * 4
+    rows = {
+        "flash_fwd_general": (
+            lambda: A.flash_fwd_general(q, k, v, True, sc),
+            lambda: A.mha_reference_with_lse(q, k, v, True, sc),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            4 * d * pairs, 4 * elem + stat),
+        "flash_bwd_dkdv_general": (
+            lambda: A.flash_bwd_dkdv_general(q, k, v, do, lse, delta, True,
+                                             sc),
+            lambda: A.flash_bwd_dkdv_reference(q, k, v, do, lse, delta, True,
+                                               sc),
+            None, 8 * d * pairs, 6 * elem + 2 * stat),
+        "flash_bwd_dq_general": (
+            lambda: A.flash_bwd_dq_general(q, k, v, do, lse, delta, True, sc),
+            lambda: A.flash_bwd_dq_reference(q, k, v, do, lse, delta, True,
+                                             sc),
+            None, 6 * d * pairs, 5 * elem + 2 * stat),
+    }
+    out = {}
+    for name, (fn, plain, lib, flops, nbytes) in rows.items():
+        ms = time_ms(torch, fn)
+        plain_ms = time_ms(torch, plain, warmup=1, reps=5)
+        lib_ms = time_ms(torch, lib) if lib else None
+        b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+        print(f"time {name} {list(shape)} fp32 causal: {ms:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} at "
+              f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32 "
+              f"({100 * b_ms / ms:.1f}% of bound); library "
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_s_timings(torch, A, gen):
+    """K1, K2, K3 and SDPA's forward and backward at [1,16,16384,64] bf16
+    causal (bench_long_context's longest point, one layer's attention):
+    device time per call, bound as phase 4 computes it."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    b, h, s, d = 1, 16, 16384, 64
+    sc = d ** -0.5
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = A.flash_fwd(q, k, v, True, sc)
+    delta = (do.float() * o.float()).sum(-1)
+    pairs = b * h * causal_pairs(s, s, True)
+    elem, stat = b * h * s * d * 2, b * h * s * 4
+    rows = {
+        "flash_fwd": (lambda: A.flash_fwd(q, k, v, True, sc),
+                      lambda: F.scaled_dot_product_attention(
+                          q, k, v, is_causal=True),
+                      4 * d * pairs, 4 * elem + stat),
+        "flash_bwd_dkdv": (lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta,
+                                                    True, sc), None,
+                           8 * d * pairs, 6 * elem + 2 * stat),
+        "flash_bwd_dq": (lambda: A.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                True, sc), None,
+                         6 * d * pairs, 5 * elem + 2 * stat),
+    }
+    out = {}
+    for name, (fn, lib, flops, nbytes) in rows.items():
+        ms = time_ms(torch, fn, warmup=2, reps=10)
+        lib_ms = time_ms(torch, lib, warmup=2, reps=10) if lib else None
+        b_ms, b_by = bound(flops, nbytes)
+        out[name] = dict(shape=[b, h, s, d], causal=True, ms=ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        print(f"time {name} [{b},{h},{s},{d}] causal: {ms:.4f} ms; bound "
+              f"{b_ms:.4f} ms by {b_by} ({100 * b_ms / ms:.1f}% of bound); "
+              f"{flops / ms / 1e9:.1f} TFLOP/s; library "
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref = F.scaled_dot_product_attention(*xs, is_causal=True)
+    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        ref, xs, do, retain_graph=True), warmup=2, reps=10)
+    pair_ms = out["flash_bwd_dkdv"]["ms"] + out["flash_bwd_dq"]["ms"]
+    pair_bound, pair_by = bound(10 * d * pairs, 7 * elem + 2 * stat)
+    print(f"time K2+K3 [{b},{h},{s},{d}] {pair_ms:.4f} ms; bound of the "
+          f"backward {pair_bound:.4f} ms by {pair_by}; SDPA backward "
+          f"{sdpa_bwd:.4f} ms; K1 / SDPA forward "
+          f"{out['flash_fwd']['ms'] / out['flash_fwd']['library_ms']:.3f}, "
+          f"K2+K3 / SDPA backward {pair_ms / sdpa_bwd:.3f}")
+    out["sdpa_backward_ms"] = sdpa_bwd
+    del q, k, v, do, o, lse, delta, xs, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def c3_phase(torch, A, dev):
+    """Fault C3 on the card: llama-tiny (fp32, head_dim 16) loss and
+    gradients on CUDA against the CPU. The Hopper kernels take neither, so
+    each attention call runs K4 in the forward and K5 and K6 in the
+    backward. Returns the card's launches of K4-K6."""
+    import copy
+
+    from ray_tpu_torch.device import full_fp32
+    from ray_tpu_torch.models import llama
+
+    t_phase = time.perf_counter()
+    cfg = llama.CONFIGS["llama-tiny"]
+    cpu = llama.Llama(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    tokens = torch.randint(0, cfg.vocab_size, (C3_BATCH, C3_SEQ + 1),
+                           generator=torch.Generator().manual_seed(1))
+    losses, launches = {}, {}
+    with full_fp32():
+        for name, model in (("cpu", cpu), ("card", card)):
+            A.reset_launch_counts()
+            loss = model.loss_fn({"tokens": tokens.to(model.wte.device)})
+            loss.backward()
+            losses[name] = loss.item()
+            launches[name] = {f.__name__: f.launches
+                              for f in A.GENERAL_WRAPPERS}
+            require(all(f.launches == 0 for f in A.KERNEL_WRAPPERS),
+                    f"llama-tiny ({name}) launches no Hopper kernel")
+    torch.cuda.synchronize()
+    e_loss = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    e_grad = max(rel_err(a.grad.cpu(), b.grad) for a, b in
+                 zip(card.parameters(), cpu.parameters()))
+    print(f"check C3: llama-tiny (fp32, head_dim {cfg.head_dim}) loss_fn on "
+          f"the card {losses['card']:.7f}, CPU {losses['cpu']:.7f}, rel "
+          f"{e_loss:.3e} (tol 1e-5); worst gradient rel {e_grad:.3e} (tol "
+          f"1e-4); general kernel launches on the card {launches['card']} "
+          f"(expect {cfg.num_layers} each, one a layer), on the CPU "
+          f"{launches['cpu']}; {time.perf_counter() - t_phase:.3f} s")
+    require(e_loss < 1e-5 and e_grad < 1e-4, "llama-tiny fp32 on the card")
+    require(all(n == 0 for n in launches["cpu"].values())
+            and all(n == cfg.num_layers for n in launches["card"].values()),
+            "general kernel launches of llama-tiny")
+    return launches["card"]
+
+
+def run_steps(torch, step_fn, state, data, warm, steps):
+    """``warm`` training steps, then ``steps`` timed on the host clock
+    ending in a fetch of the last loss: the one timing loop of every
+    training phase. ``state`` is (model, opt_state, step); returns it,
+    every loss and gradient norm (floats) and the timed seconds."""
+    mets = []
+    for i in range(warm + steps):
+        if i == warm:
+            mets[-1]["loss"].item()
+            t0 = time.perf_counter()
+        model, opt_state, step, met = step_fn(*state, data)
+        state = (model, opt_state, step)
+        mets.append(met)
+    mets[-1]["loss"].item()
+    elapsed = time.perf_counter() - t0
+    return (state, [m["loss"].item() for m in mets],
+            [m["grad_norm"].item() for m in mets], elapsed)
+
+
+def adafactor_gpt2(torch, A, name, seq, batch, warm, steps,
+                   profile_root=None):
+    """bench.py's bench_15b recipe (``bench_long_context``'s too):
+    ``CONFIGS[name]`` at ``max_seq = seq``, bf16 parameters
+    (``cast_floating``), remat "mem2", ``adafactor(1e-4)`` without the
+    fp32 master, bench.py's tokens; ``warm`` steps, then ``steps`` timed
+    on the host clock ending in a fetch of the loss. Returns the figures
+    and the launches of each kernel a step."""
+    import numpy as np
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.common import cast_floating, param_count
+    from ray_tpu_torch.train.optim import adafactor
+    from ray_tpu_torch.train.step import build_train
+
+    t_phase = time.perf_counter()
+    base = gpt2.CONFIGS[name]
+    cfg = gpt2.GPT2Config(vocab_size=base.vocab_size, max_seq=seq,
+                          num_layers=base.num_layers,
+                          num_heads=base.num_heads, d_model=base.d_model,
+                          dtype=torch.bfloat16, attention_impl="flash",
+                          remat_policy="mem2")
+    opt = adafactor(1e-4)
+    init, step_fn = build_train(
+        lambda g: cast_floating(gpt2.GPT2(cfg, g), torch.bfloat16),
+        lambda m, b: m.loss_fn(b), optimizer=opt, master_fp32=False)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               (batch, seq + 1))
+    data = {"tokens": torch.from_numpy(tokens).cuda()}
+    t0 = time.perf_counter()
+    model, opt_state, step = init(0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = param_count(model)
+    state_b = tensor_bytes(opt_state)
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    (model, opt_state, step), losses, _, elapsed = run_steps(
+        torch, step_fn, (model, opt_state, step), data, warm, steps)
+    n = warm + steps
+    launches = {f.__name__: f.launches / n for f in A.KERNEL_WRAPPERS}
+    general = general_launches(A)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = elapsed / steps * 1e3
+    tok_s = batch * seq * steps / elapsed
+    mfu = tok_s * gpt2.flops_per_token(cfg, seq) / PEAK_BF16_FLOPS
+    label = f"{name} seq {seq} batch {batch}"
+    print(f"{label}: {n_params} parameters ({n_params * 2 / 1e9:.3f} GB "
+          f"bf16), mem2, adafactor(1e-4), no master; init {t_init:.3f} s; "
+          f"adafactor state {state_b} bytes ({state_b / 1e6:.3f} MB) against "
+          f"AdamW-bf16's 2 x 2 x N = {4 * n_params / 1e9:.3f} GB")
+    print(f"{label} losses {losses}")
+    print(f"{label} train: step {step_ms:.3f} ms, {tok_s:.1f} tokens/s, MFU "
+          f"{100 * mfu:.3f}% of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s "
+          f"({gpt2.flops_per_token(cfg, seq) / 1e9:.4f} GFLOP a token), peak "
+          f"memory {peak:.3f} GB; launches per step {launches} (expect "
+          f"{cfg.num_layers} each); general kernels {general}")
+    require(all(math.isfinite(x) for x in losses), f"{label}: finite losses")
+    require(abs(losses[0] - math.log(cfg.vocab_size)) < 1.0,
+            f"{label}: first loss {losses[0]} near ln(vocab) = "
+            f"{math.log(cfg.vocab_size):.3f}")
+    require(all(v == cfg.num_layers for v in launches.values()),
+            f"{label}: one launch of each kernel per layer per step")
+    require(general == 0, f"{label}: no general kernel")
+    if profile_root is not None:
+        profile_step(torch, step_fn, model, opt_state, step, data,
+                     profile_root, f"chip_smoke_profile_{name}_s{seq}.txt")
+        profile_optimizer(torch, model, opt_state, opt, data)
+    del model, opt_state, step_fn, init, data
+    torch.cuda.empty_cache()
+    print(f"{label} phase: {time.perf_counter() - t_phase:.3f} s wall")
+    return dict(step_ms=step_ms, tokens_s=tok_s, mfu_pct=100 * mfu,
+                peak_gb=peak, losses=losses, state_bytes=state_b,
+                launches=launches)
+
+
+def profile_optimizer(torch, model, opt_state, opt, data):
+    """One optimizer update and its ``p + u`` on the model's gradients
+    under torch.profiler: the kernels it launches and their device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    params = list(model.parameters())
+    model.loss_fn(data).backward()
+    grads = [p.grad for p in params]
+    for p in params:
+        p.grad = None
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        updates, _ = opt.update(grads, opt_state, [p.detach() for p in params])
+        for p, u in zip(params, updates):
+            p.copy_(p + u)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.device_time_total for e in kernels) / 1e3
+    print(f"profile of one adafactor update over {len(params)} tensors "
+          f"({len(opt_state['groups'])} leaves) and its p + u: "
+          f"{len(kernels)} kernels, {dev_ms:.3f} ms of device time, "
+          f"{1e3 * wall:.3f} ms of host wall time under the profiler")
+
+
+def vit_phase(torch, A, profile_root=None):
+    """ViT-B/16 at 224 x 224 (S = 197, head_dim 64, 12 layers, remat):
+    bf16, fp32 master, default_optimizer, batch 64, images and labels from
+    default_rng(0), 2 + 5 steps."""
+    import numpy as np
+
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.models.common import param_count
+    from ray_tpu_torch.train.optim import default_optimizer
+    from ray_tpu_torch.train.step import build_train
+
+    t_phase = time.perf_counter()
+    cfg = vit.CONFIGS["vit-b16"]
+    batch, warm, steps = 64, 2, 5
+    init, step_fn = build_train(lambda g: vit.ViT(cfg, g),
+                                lambda m, b: m.loss_fn(b),
+                                optimizer=default_optimizer(),
+                                master_fp32=True)
+    rng = np.random.default_rng(0)
+    data = {"image": torch.from_numpy(rng.standard_normal(
+        (batch, cfg.image_size, cfg.image_size, 3), dtype=np.float32)).cuda(),
+        "label": torch.from_numpy(rng.integers(0, cfg.num_classes,
+                                               (batch,))).cuda()}
+    model, opt_state, step = init(0)
+    n_params = param_count(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    (model, opt_state, step), losses, _, elapsed = run_steps(
+        torch, step_fn, (model, opt_state, step), data, warm, steps)
+    n = warm + steps
+    launches = {f.__name__: f.launches / n for f in A.KERNEL_WRAPPERS}
+    general = general_launches(A)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    img_s = batch * steps / elapsed
+    fpi = vit.flops_per_image(cfg, n_params)
+    mfu = img_s * fpi / PEAK_BF16_FLOPS
+    s = cfg.num_patches + 1
+    print(f"vit-b16: {n_params} parameters, batch {batch}, 224 x 224, S {s}, "
+          f"bf16 + fp32 master, default_optimizer, remat")
+    print(f"vit-b16 losses {losses}")
+    print(f"vit-b16 train: step {elapsed / steps * 1e3:.3f} ms, "
+          f"{img_s:.1f} images/s, MFU {100 * mfu:.3f}% of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s (6N + 12·L·d·S a token at "
+          f"S = {s}: {fpi / 1e9:.4f} GFLOP an image), peak memory "
+          f"{peak:.3f} GB; launches per step {launches} (expect K1 "
+          f"{2 * cfg.num_layers}, K2 and K3 {cfg.num_layers}); general "
+          f"kernels {general}")
+    require(all(math.isfinite(x) for x in losses), "vit-b16: finite losses")
+    require(abs(losses[0] - math.log(cfg.num_classes)) < 0.5,
+            f"vit-b16: first loss {losses[0]} near ln(classes) = "
+            f"{math.log(cfg.num_classes):.3f}")
+    require(launches == {"flash_fwd": 2 * cfg.num_layers,
+                         "flash_bwd_dkdv": cfg.num_layers,
+                         "flash_bwd_dq": cfg.num_layers},
+            "vit-b16: K1 twice a layer, K2 and K3 once")
+    require(general == 0, "vit-b16: no general kernel")
+    if profile_root is not None:
+        profile_step(torch, step_fn, model, opt_state, step, data,
+                     profile_root, "chip_smoke_profile_vit.txt")
+    del model, opt_state, step_fn, init, data
+    torch.cuda.empty_cache()
+    print(f"vit-b16 phase: {time.perf_counter() - t_phase:.3f} s wall")
+    return dict(step_ms=elapsed / steps * 1e3, images_s=img_s,
+                mfu_pct=100 * mfu, peak_gb=peak, launches=launches)
+
+
+def resnet_phase(torch):
+    """resnet18-cifar (fp32, as its config) at batch 128 on 32 x 32
+    images from default_rng(0), default_optimizer, 2 + 5 steps; the batch
+    statistics carried from step to step."""
+    import numpy as np
+
+    from ray_tpu_torch.device import fp32_settings
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.models.common import param_count
+    from ray_tpu_torch.train.step import build_train
+
+    t_phase = time.perf_counter()
+    cfg = resnet.CONFIGS["resnet18-cifar"]
+    batch, warm, steps = 128, 2, 5
+    rng = np.random.default_rng(0)
+    data = {"image": torch.from_numpy(rng.standard_normal(
+        (batch, 32, 32, 3), dtype=np.float32)).cuda(),
+        "label": torch.from_numpy(rng.integers(0, cfg.num_classes,
+                                               (batch,))).cuda()}
+    stats = [resnet.init_stats(cfg, data["image"].device)]
+
+    def loss_fn(model, b):
+        loss, (new, _acc) = model.loss_fn(stats[0], b)
+        stats[0] = {k: v.detach() for k, v in new.items()}
+        return loss
+
+    init, step_fn = build_train(lambda g: resnet.ResNet(cfg, g), loss_fn)
+    model, opt_state, step = init(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (model, opt_state, step), losses, _, elapsed = run_steps(
+        torch, step_fn, (model, opt_state, step), data, warm, steps)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = (stats[0]["stem_bn_var"] - 1).abs().max().item()
+    print(f"resnet18-cifar: {param_count(model)} parameters, batch {batch}, "
+          f"32 x 32, fp32, default_optimizer; fp32 settings: "
+          f"{fp32_settings()}")
+    print(f"resnet18-cifar losses {losses}")
+    print(f"resnet18-cifar train: step {elapsed / steps * 1e3:.3f} ms, "
+          f"{batch * steps / elapsed:.1f} images/s, peak memory {peak:.3f} "
+          f"GB; stem BN variance moved by up to {moved:.4f} from 1")
+    require(all(math.isfinite(x) for x in losses),
+            "resnet18-cifar: finite losses")
+    require(abs(losses[0] - math.log(cfg.num_classes)) < 0.5,
+            f"resnet18-cifar: first loss {losses[0]} near ln(classes) = "
+            f"{math.log(cfg.num_classes):.3f}")
+    require(moved > 0, "resnet18-cifar: the batch statistics are carried")
+    del model, opt_state, step_fn, init, data
+    torch.cuda.empty_cache()
+    print(f"resnet18-cifar phase: {time.perf_counter() - t_phase:.3f} s "
+          "wall")
+    return dict(step_ms=elapsed / steps * 1e3,
+                images_s=batch * steps / elapsed, peak_gb=peak,
+                first_loss=losses[0])
 
 
 if __name__ == "__main__":

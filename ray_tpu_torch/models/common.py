@@ -8,7 +8,7 @@ whatever the activation dtype, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -27,6 +27,23 @@ def truncated_normal(shape, generator: Optional[torch.Generator] = None,
 
 def param_count(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
+
+
+def param_bytes(module: nn.Module) -> int:
+    return sum(p.numel() * p.element_size() for p in module.parameters())
+
+
+def cast_floating(tree, dtype: torch.dtype):
+    """Every floating-point tensor of ``tree`` in ``dtype``, the others as
+    they are: a module is cast in place (its parameters and buffers) and
+    returned; a dict, list or tuple of tensors comes back as a new one."""
+    if isinstance(tree, nn.Module):
+        return tree.to(dtype)  # moves floating-point tensors only
+    if isinstance(tree, Mapping):
+        return {k: cast_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floating(v, dtype) for v in tree)
+    return tree.to(dtype) if tree.is_floating_point() else tree
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):

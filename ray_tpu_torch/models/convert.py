@@ -1,5 +1,5 @@
-"""Carries GPT-2, Llama and PPO-policy parameters between the JAX
-package's pytrees and the port's modules.
+"""Carries GPT-2, Llama, ViT, ResNet and PPO-policy parameters between
+the JAX package's pytrees and the port's modules.
 
 The JAX tree arrives as nested dicts of numpy arrays (``np.asarray`` of
 each leaf). Block leaves are stacked ``[L, ...]`` there and are one
@@ -7,9 +7,10 @@ tensor per layer here (``blocks.<i>.<name>``). bf16 leaves are numpy
 arrays of an extension dtype named ``bfloat16``; they cross as their
 ``uint16`` bits and are viewed as ``torch.bfloat16``, bit for bit.
 
-The PPO policies (``rllib/policy.py``) are flat dicts under the same names
-on both sides; conv weights are HWIO there and OIHW here, and the dense
-rows keep JAX's (h, w, c) order.
+The PPO policies (``rllib/policy.py``) and ResNet's parameters and batch
+statistics are flat dicts under the same names on both sides; conv
+weights are HWIO there and OIHW here, and the PPO dense rows keep JAX's
+(h, w, c) order.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import torch
 
 _GPT2_TOP = ("wte", "wpe", "lnf_scale", "lnf_bias")
 _LLAMA_TOP = ("wte", "final_norm")
+_VIT_TOP = ("patch_w", "patch_b", "cls_token", "pos_embed", "lnf_scale",
+            "lnf_bias", "head_w", "head_b")
 
 
 def tensor_from_numpy(arr) -> torch.Tensor:
@@ -82,6 +85,33 @@ def llama_tree_to_numpy(named: Mapping[str, torch.Tensor], cfg) -> Dict:
     """Module-named tensors (parameters or their gradients) -> the JAX
     Llama pytree layout as fp32 numpy, block leaves stacked ``[L, ...]``."""
     return _tree_to_numpy(named, cfg, _LLAMA_TOP)
+
+
+def vit_params_from_numpy(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ViT pytree (numpy leaves) -> the ``ViT`` module's state dict."""
+    return _params_from_numpy(tree, cfg, _VIT_TOP)
+
+
+def vit_tree_to_numpy(named: Mapping[str, torch.Tensor], cfg) -> Dict:
+    """Module-named tensors (parameters or their gradients) -> the JAX ViT
+    pytree layout as fp32 numpy, block leaves stacked ``[L, ...]``."""
+    return _tree_to_numpy(named, cfg, _VIT_TOP)
+
+
+def resnet_params_from_numpy(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ResNet params or batch statistics (flat, numpy leaves) -> the
+    port's: 4-D leaves are conv kernels, HWIO there, OIHW here."""
+    return {name: tensor_from_numpy(np.transpose(arr, (3, 2, 0, 1))
+                                    if np.ndim(arr) == 4 else arr)
+            for name, arr in tree.items()}
+
+
+def resnet_tree_to_numpy(named: Mapping[str, torch.Tensor]) -> Dict:
+    """The port's ResNet tensors (parameters, their gradients or the
+    statistics) -> the JAX layout as fp32 numpy."""
+    return {name: tensor_to_numpy(t.permute(2, 3, 1, 0) if t.ndim == 4
+                                  else t)
+            for name, t in named.items()}
 
 
 def _is_conv(name: str) -> bool:

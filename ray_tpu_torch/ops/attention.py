@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``ops/attention.py``. Shapes: q
 ``[B, H, Sq, D]``, k/v ``[B, H, Sk, D]``; lse is fp32 ``[B, H, Sq]``.
 
-Three kernels, each with a plain PyTorch version beside it and a launch
-count (``<wrapper>.launches``):
+Six kernels, each with a plain PyTorch version beside it and a launch
+count (``<wrapper>.launches``). The Hopper kernels (``KERNEL_WRAPPERS``:
+TMA, mbarriers and wgmma) take bf16 or fp16 at head_dim 64 or 128:
 
   - ``flash_fwd`` (csrc/flash_fwd.cu): o and lse; plain version
     ``mha_reference_with_lse``;
@@ -13,11 +14,21 @@ count (``<wrapper>.launches``):
   - ``flash_bwd_dq`` (csrc/flash_bwd_dq.cu): dq; plain version
     ``flash_bwd_dq_reference``.
 
+The general kernels (``GENERAL_WRAPPERS``: CUDA cores, fp32 sums) take
+the rest, as the Pallas kernels compute every dtype and head_dim in their
+own body: fp32, bf16 or fp16 at any head_dim from 1 to 256.
+``flash_fwd_general``, ``flash_bwd_dkdv_general`` and
+``flash_bwd_dq_general`` (csrc/*_general.cu) have the same plain versions.
+
 A wrapper runs the plain version only for tensors on the CPU. For any
-other tensor it launches its kernel or raises: on a dtype other than
-bf16/fp16, a head_dim other than 64/128, non-contiguous or misaligned
-input, or a kernel that cannot be built. The kernels mask ragged Sq and
-Sk themselves, so every such shape goes to them.
+other tensor it launches its kernel or raises: on a dtype or head_dim its
+kernel does not take, non-contiguous or (Hopper) misaligned input, or a
+kernel that cannot be built. The kernels mask ragged Sq and Sk
+themselves, so every such shape goes to them.
+
+The entry points (``flash_attention``, ``attention``,
+``attention_with_lse``) pick the kernels from the dtype and the head_dim
+alone (``kernels_for``), before any launch.
 """
 
 from __future__ import annotations
@@ -105,15 +116,34 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(q, k, v, do=None) -> None:
-    """Raises on what the kernels do not take."""
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+GENERAL_MAX_HEAD_DIM = 256
+
+
+def hopper_takes(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the Hopper kernels take this input: bf16 or fp16 at
+    head_dim 64 or 128."""
+    return dtype in (torch.bfloat16, torch.float16) and head_dim in (64, 128)
+
+
+def _check(q, k, v, do=None, general: bool = False) -> None:
+    """Raises on what the kernels (the general ones with ``general``) do
+    not take."""
     if q.device.type != "cuda":
         raise ValueError(f"flash kernels run on CUDA, got {q.device}")
-    if q.dtype not in (torch.bfloat16, torch.float16):
-        raise TypeError(f"flash kernels take bf16 or fp16, got {q.dtype}")
-    if q.ndim != 4 or q.shape[-1] not in (64, 128):
-        raise ValueError(f"flash kernels take [B,H,S,D] with D 64 or 128, "
-                         f"got {tuple(q.shape)}")
+    if q.ndim != 4:
+        raise ValueError(f"flash kernels take [B,H,S,D], got "
+                         f"{tuple(q.shape)}")
+    if general:
+        if q.dtype not in _DTYPE_CODE:
+            raise TypeError(f"general flash kernels take fp32, bf16 or "
+                            f"fp16, got {q.dtype}")
+        if not 1 <= q.shape[-1] <= GENERAL_MAX_HEAD_DIM:
+            raise ValueError(f"general flash kernels take head_dim 1 to "
+                             f"{GENERAL_MAX_HEAD_DIM}, got {q.shape[-1]}")
+    elif not hopper_takes(q.dtype, q.shape[-1]):
+        raise TypeError(f"Hopper flash kernels take bf16 or fp16 at head_dim"
+                        f" 64 or 128, got {q.dtype} at {q.shape[-1]}")
     b, h, _, d = q.shape
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
@@ -125,7 +155,7 @@ def _check(q, k, v, do=None) -> None:
             raise TypeError("flash kernel operands differ in dtype/device")
         if not t.is_contiguous():
             raise ValueError("flash kernels take contiguous tensors")
-        if t.data_ptr() % 16:
+        if not general and t.data_ptr() % 16:
             raise ValueError("flash kernels need 16-byte aligned tensors")
 
 
@@ -133,7 +163,7 @@ def _kernel(name: str, argtypes, *tensors):
     """The C entry point of kernel ``name`` (built on first use) after the
     operands are checked."""
     fn = getattr(_build.load(name, argtypes), name)
-    _check(*tensors)
+    _check(*tensors, general=name.endswith("_general"))
     return fn
 
 
@@ -216,15 +246,74 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
     return dq
 
 
-flash_fwd.launches = 0
-flash_bwd_dkdv.launches = 0
-flash_bwd_dq.launches = 0
+def flash_fwd_general(q, k, v, causal: bool, scale: float):
+    """K4: (o, lse) for what K1 does not take. Plain version for CPU
+    tensors, the kernel otherwise."""
+    if q.device.type == "cpu":
+        return mha_reference_with_lse(q, k, v, causal=causal, scale=scale)
+    fn = _kernel("flash_fwd_general", [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+                 q, k, v)
+    b, h, sq, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
+    _launch(fn, q, k, v, o, lse, b, h, sq, k.shape[2], d, int(causal),
+            float(scale), _DTYPE_CODE[q.dtype])
+    flash_fwd_general.launches += 1
+    return o, lse
+
+
+def flash_bwd_dkdv_general(q, k, v, do, lse, delta, causal: bool,
+                           scale: float):
+    """K5: (dk, dv) for what K2 does not take. Plain version for CPU
+    tensors, the kernel otherwise."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal,
+                                        scale)
+    fn = _kernel("flash_bwd_dkdv_general", [_P] * 8 + [_I] * 6
+                 + [_F, _I, _P], q, k, v, do)
+    b, h, sq, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(fn, q, k, v, do, _stats(lse, q), _stats(delta, q), dk, dv, b, h,
+            sq, k.shape[2], d, int(causal), float(scale),
+            _DTYPE_CODE[q.dtype])
+    flash_bwd_dkdv_general.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq_general(q, k, v, do, lse, delta, causal: bool,
+                         scale: float):
+    """K6: dq for what K3 does not take. Plain version for CPU tensors, the
+    kernel otherwise."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
+    fn = _kernel("flash_bwd_dq_general", [_P] * 7 + [_I] * 6 + [_F, _I, _P],
+                 q, k, v, do)
+    b, h, sq, d = q.shape
+    dq = torch.empty_like(q)
+    _launch(fn, q, k, v, do, _stats(lse, q), _stats(delta, q), dq, b, h, sq,
+            k.shape[2], d, int(causal), float(scale), _DTYPE_CODE[q.dtype])
+    flash_bwd_dq_general.launches += 1
+    return dq
+
+
 KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dkdv, flash_bwd_dq)
+GENERAL_WRAPPERS = (flash_fwd_general, flash_bwd_dkdv_general,
+                    flash_bwd_dq_general)
+for _fn in KERNEL_WRAPPERS + GENERAL_WRAPPERS:
+    _fn.launches = 0
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
+    """Zero every kernel's launch count."""
+    for fn in KERNEL_WRAPPERS + GENERAL_WRAPPERS:
         fn.launches = 0
+
+
+def kernels_for(dtype: torch.dtype, head_dim: int):
+    """(forward, dk/dv, dq) wrappers for this input: the Hopper kernels
+    where they take it (``hopper_takes``), the general ones otherwise."""
+    return (KERNEL_WRAPPERS if hopper_takes(dtype, head_dim)
+            else GENERAL_WRAPPERS)
 
 
 # ---------------------------------------------------------------------------
@@ -234,11 +323,12 @@ def reset_launch_counts() -> None:
 class _Flash(torch.autograd.Function):
     """Counterpart of ``_flash`` with ``_flash_fwd_rule``/``_flash_bwd_rule``:
     saves q, k, v, o and lse; the backward computes delta = rowsum(dO o)
-    in fp32 and runs K2 and K3."""
+    in fp32 and runs the dk/dv and dq kernels of ``kernels_for``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
-        o, lse = flash_fwd(q, k, v, causal, scale)
+        fwd, ctx.dkdv, ctx.dq = kernels_for(q.dtype, q.shape[-1])
+        o, lse = fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale = causal, scale
         return o
@@ -248,9 +338,8 @@ class _Flash(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(dim=-1)
-        dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, ctx.causal,
-                                ctx.scale)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        dk, dv = ctx.dkdv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        dq = ctx.dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -275,11 +364,12 @@ def attention(q, k, v, causal: bool = True, impl: str = "auto",
 
 def attention_with_lse(q, k, v, causal: bool = True,
                        scale: Optional[float] = None, impl: str = "auto"):
-    """Forward-only attention returning (o, lse)."""
+    """Forward-only attention returning (o, lse): the forward kernel of
+    ``kernels_for``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if impl == "reference":
         return mha_reference_with_lse(q, k, v, causal=causal, scale=scale)
     if impl not in ("auto", "flash"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    return flash_fwd(q, k, v, causal, scale)
+    return kernels_for(q.dtype, q.shape[-1])[0](q, k, v, causal, scale)

@@ -8,6 +8,13 @@ moments live in the optimizer state; each step updates the master and
 casts it back into the live parameters. Parameters, master and moments
 are updated in place where JAX would donate and rebind them.
 
+Without the master copy the step is the JAX package's pure one: a model
+whose parameters are bf16 (``models.common.cast_floating``) gets bf16
+gradients, the optimizer sees the bf16 parameters (so Adafactor's state
+is bf16), and ``p + u`` rounds once, as ``optax.apply_updates``. The
+optimizer is told which parameters are the layers of one JAX leaf
+(``optim.leaf_groups`` of the module's names).
+
 Mesh and sharding (``parallel/``) are not ported yet (ROADMAP Queue A
 item 7); this runs on one device.
 """
@@ -20,7 +27,8 @@ import torch
 import torch.nn as nn
 
 from ..device import default_device
-from .optim import GradientTransformation, default_optimizer, global_norm
+from .optim import (GradientTransformation, default_optimizer, global_norm,
+                    leaf_groups)
 
 
 def build_train(init_fn: Callable[[torch.Generator], nn.Module],
@@ -45,13 +53,15 @@ def build_train(init_fn: Callable[[torch.Generator], nn.Module],
 
     def init(seed: int = 0):
         model = init_fn(torch.Generator().manual_seed(seed)).to(dev)
+        groups = leaf_groups([n for n, _ in model.named_parameters()])
         if master_fp32:
             master = [p.detach().clone() for p in model.parameters()]
-            opt_state = {"master": master, "inner": optimizer.init(master)}
+            opt_state = {"master": master,
+                         "inner": optimizer.init(master, groups)}
             model.to(torch.bfloat16)
         else:
             opt_state = optimizer.init(
-                [p.detach() for p in model.parameters()])
+                [p.detach() for p in model.parameters()], groups)
         return model, opt_state, 0
 
     def step(model: nn.Module, opt_state: Any, step: int, batch: Dict):

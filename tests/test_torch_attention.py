@@ -207,6 +207,63 @@ def test_cpu_path_counts_no_launches():
 
 
 # ---------------------------------------------------------------------------
+# The route: Hopper kernels or general kernels, by dtype and head_dim
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,head_dim,hopper", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    (torch.float16, 64, True), (torch.float16, 128, True),
+    (torch.float32, 64, False), (torch.float32, 128, False),
+    (torch.bfloat16, 16, False), (torch.bfloat16, 32, False),
+    (torch.float16, 32, False), (torch.float32, 16, False)])
+def test_attention_route_by_dtype_and_head_dim(monkeypatch, dtype, head_dim,
+                                               hopper):
+    """The Hopper kernels for bf16/fp16 at head_dim 64 and 128, the general
+    kernels for anything else; off the CPU each entry point goes to the
+    chosen forward kernel and raises when it cannot be loaded, never
+    falling back to the plain attention. (A meta tensor stands in for the
+    card.)"""
+    want = tattn.KERNEL_WRAPPERS if hopper else tattn.GENERAL_WRAPPERS
+    assert tattn.kernels_for(dtype, head_dim) is want
+    assert tattn.hopper_takes(dtype, head_dim) is hopper
+
+    def broken(name, argtypes):
+        raise RuntimeError(f"cannot load {name}")
+
+    monkeypatch.setattr(_build, "load", broken)
+    tattn.reset_launch_counts()
+    q = torch.empty((1, 2, 8, head_dim), dtype=dtype, device="meta")
+    fwd = "flash_fwd" if hopper else "flash_fwd_general"
+    with pytest.raises(RuntimeError, match=f"cannot load {fwd}$"):
+        tattn.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match=f"cannot load {fwd}$"):
+        tattn.attention_with_lse(q, q, q)
+    assert all(f.launches == 0
+               for f in tattn.KERNEL_WRAPPERS + tattn.GENERAL_WRAPPERS)
+
+
+def test_cpu_inputs_launch_no_kernel():
+    """fp32 at head_dim 16 on the CPU: the general route's plain versions,
+    forward and backward, equal the plain attention; nothing launches."""
+    tattn.reset_launch_counts()
+    q, k, v, _ = _inputs(1, 2, 8, 8, 16)
+    ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    refs = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    o = tattn.flash_attention(*ts)
+    o.sum().backward()
+    ro = tattn.mha_reference(*refs)
+    ro.sum().backward()
+    _close(o.detach(), ro.detach())
+    for t, r in zip(ts, refs):
+        _close(t.grad, r.grad)
+    o2, lse = tattn.attention_with_lse(*(t.detach() for t in ts))
+    _close(o2, ro.detach())
+    assert lse.shape == (1, 2, 8)
+    assert all(f.launches == 0
+               for f in tattn.KERNEL_WRAPPERS + tattn.GENERAL_WRAPPERS)
+
+
+# ---------------------------------------------------------------------------
 # Device choice and the absence of a fallback
 # ---------------------------------------------------------------------------
 
@@ -284,13 +341,23 @@ def test_build_keeps_nvcc_log_beside_library(monkeypatch, tmp_path):
 
 
 def test_every_kernel_is_built_on_the_hopper_header():
-    """Each kernel source includes csrc/hopper.cuh and runs its products on
-    wgmma; no mma.sync is left, and hopper.cuh is the only header."""
+    """Each Hopper kernel source includes csrc/hopper.cuh and runs its
+    products on wgmma; each general one (fp32 or head dims other than 64
+    and 128) includes csrc/general.cuh; no mma.sync is left anywhere, and
+    those are the only headers."""
+    hopper = {f.__name__ for f in tattn.KERNEL_WRAPPERS}
+    general = {f.__name__ for f in tattn.GENERAL_WRAPPERS}
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == hopper | general
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
-        assert '#include "hopper.cuh"' in text, src.name
-        assert "wgmma_" in text and "mma.sync" not in text, src.name
-    assert [p.name for p in _build.CSRC.glob("*.cuh")] == ["hopper.cuh"]
+        assert "mma.sync" not in text, src.name
+        if src.stem in hopper:
+            assert '#include "hopper.cuh"' in text, src.name
+            assert "wgmma_" in text, src.name
+        else:
+            assert '#include "general.cuh"' in text, src.name
+    assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == [
+        "general.cuh", "hopper.cuh"]
 
 
 def test_build_names_every_kernel_source():

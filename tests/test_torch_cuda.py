@@ -372,3 +372,127 @@ def test_cuda_ppo_entry_points_default_to_the_card(cuda):
     assert all(p.device.type == "cuda" for p in algo.params.values())
     m = algo.train_iteration()
     assert m["timesteps_this_iter"] == 16
+
+
+# -- the attention route (fault C3), ViT on the card ----------------------------
+
+@pytest.mark.cuda
+def test_cuda_fp32_llama_runs_the_general_kernels(cuda):
+    """llama-tiny (fp32, head_dim 16): the Hopper kernels take neither, so
+    every attention call on the card runs the general kernels (K4 in the
+    forward, K5 and K6 in the backward, one each a layer); loss and
+    gradients equal the CPU's (full fp32 on both: 1e-5 relative on the
+    loss, 1e-4 of each gradient's largest entry)."""
+    import copy
+
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.CONFIGS["llama-tiny"]
+    cpu = llama.Llama(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 33),
+                           generator=torch.Generator().manual_seed(1))
+    losses = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        tattn.reset_launch_counts()
+        loss = model.loss_fn({"tokens": tokens.to(
+            next(model.parameters()).device)})
+        loss.backward()
+        losses[name] = loss.item()
+        n = cfg.num_layers if name == "card" else 0
+        assert [f.launches for f in tattn.GENERAL_WRAPPERS] == [n, n, n]
+        assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [0, 0, 0]
+    assert abs(losses["card"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
+    for a, b in zip(card.parameters(), cpu.parameters()):
+        err = (a.grad.cpu() - b.grad).abs().max()
+        assert err <= 1e-4 * b.grad.abs().max() + 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,d,causal,dtype", [
+    (64, 64, 16, True, torch.float32),       # llama-tiny's head
+    (200, 130, 64, True, torch.float32),     # causal Sq > Sk, fp32 at D 64
+    (130, 200, 128, False, torch.float32),   # fp32 at D 128
+    (100, 100, 32, False, torch.bfloat16),
+    (70, 150, 80, True, torch.float16),      # causal Sq < Sk, D not /32
+    (48, 48, 256, True, torch.float32),      # the largest head_dim
+    (33, 33, 1, True, torch.float32),
+])
+def test_cuda_general_kernels_match_plain(cuda, sq, sk, d, causal, dtype):
+    """K4-K6 against the plain versions on the same inputs: fp32 within
+    1e-5 of the largest entry (fp32 sums in another order), 16-bit within
+    2e-2 (bf16 keeps 8 bits); the Hopper kernels are not launched."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    mk = lambda s: torch.randn((2, 3, s, d), generator=g, device=cuda,
+                               dtype=dtype)
+    q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
+    scale = d ** -0.5
+    tattn.reset_launch_counts()
+    o, lse = tattn.flash_fwd_general(q, k, v, causal, scale)
+    ro, rlse = tattn.mha_reference_with_lse(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = tattn.flash_bwd_dkdv_general(q, k, v, do, lse, delta, causal,
+                                          scale)
+    dq = tattn.flash_bwd_dq_general(q, k, v, do, lse, delta, causal, scale)
+    rdk, rdv = tattn.flash_bwd_dkdv_reference(q, k, v, do, lse, delta,
+                                              causal, scale)
+    rdq = tattn.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                       scale)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, r in ((o, ro), (dq, rdq), (dk, rdk), (dv, rdv)):
+        err = (a.float() - r.float()).abs().max() / r.float().abs().max()
+        assert err < tol
+    assert (lse - rlse).abs().max() < 1e-4
+    assert [f.launches for f in tattn.GENERAL_WRAPPERS] == [1, 1, 1]
+    assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [0, 0, 0]
+
+
+@pytest.mark.cuda
+def test_cuda_general_kernels_refuse_head_dim_over_256(cuda):
+    q = torch.zeros((1, 1, 8, 288), device=cuda)
+    with pytest.raises(ValueError, match="head_dim 1 to 256"):
+        tattn.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_vit_step(cuda):
+    """A tiny ViT (head_dim 64, S = 65, remat on) trains a step on the
+    card: K1 twice a layer (forward and recompute), K2 and K3 once, no
+    general kernel; the bf16 logits within 5e-2 of an fp32 CPU evaluation of
+    the same weights (relative to the largest logit)."""
+    import copy
+    import dataclasses
+
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.train.optim import default_optimizer
+    from ray_tpu_torch.train.step import build_train
+
+    cfg = vit.ViTConfig(image_size=32, patch_size=4, num_layers=2,
+                        num_heads=2, d_model=128, d_mlp=256, num_classes=10)
+
+    def init_fn(g):
+        model = vit.ViT(cfg, g)
+        with torch.no_grad():
+            model.head_w.normal_(0.0, 0.02, generator=g)
+        return model
+
+    init, step = build_train(init_fn, lambda m, b: m.loss_fn(b),
+                             optimizer=default_optimizer(warmup=1),
+                             master_fp32=True)
+    model, opt, n = init(0)
+    g = torch.Generator().manual_seed(2)
+    batch = {"image": torch.randn((8, 32, 32, 3), generator=g),
+             "label": torch.randint(0, 10, (8,), generator=g)}
+    ref = copy.deepcopy(model).float().cpu()
+    ref.cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.no_grad():
+        got = model(batch["image"].to(cuda)).float().cpu()
+        want = ref(batch["image"])
+    assert (got - want).abs().max() / want.abs().max() < 5e-2
+    tattn.reset_launch_counts()
+    model, opt, n, met = step(model, opt, n, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(met["loss"]) and n == 1
+    assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [4, 2, 2]
+    assert [f.launches for f in tattn.GENERAL_WRAPPERS] == [0, 0, 0]

@@ -174,3 +174,89 @@ def test_default_optimizer_matches_optax():
         tp = tp + tu[0]
         np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6,
                                    atol=1e-7)
+
+
+BF16_TINY = dict(vocab_size=256, max_seq=64, num_layers=2, num_heads=2,
+                 d_model=128)
+
+
+def test_pure_bf16_adafactor_step_matches_jax():
+    """bench.py's bench_15b recipe at a tiny size: bf16 parameters (the
+    JAX package's ``cast_floating``; the port's), ``adafactor``, no master
+    copy, ``mem2``, three steps of ``build_train`` against
+    ``build_sharded_train`` on a 1-device mesh. d_model 128 so that the
+    block weights are factored; lr 1e-2 so that an update moves a bf16
+    parameter (at 1e-4 it rounds away).
+
+    Tolerances. Both models compute in bf16, XLA fusing what PyTorch
+    rounds op by op, so the bf16 gradients differ by roundings: losses
+    agree to 1e-3 relative and the gradients' norms (summed in bf16 by
+    optax, in fp32 here) to 1e-2. Adafactor divides each gradient by its
+    own RMS estimate, so an element whose gradient is rounding noise (the
+    key bias, which softmax ignores) moves by a whole step of either sign:
+    an element may sit 3 bf16 ulps (3 * 2^-7 of its magnitude) plus twice
+    its leaf's largest step of the reference at each step away, and the
+    change of all parameters over the three steps is held to 15% (L2) of
+    the reference's change (measured about 10%)."""
+    from ray_tpu.models.common import cast_floating as j_cast_floating
+    from ray_tpu_torch.models.common import cast_floating
+
+    jcfg = jgpt2.GPT2Config(**BF16_TINY, dtype=jnp.bfloat16,
+                            attention_impl="flash", remat=True,
+                            remat_policy="mem2")
+    tcfg = tgpt2.GPT2Config(**BF16_TINY, dtype=torch.bfloat16,
+                            attention_impl="flash", remat_policy="mem2")
+
+    def j_init(key):
+        params, axes = jgpt2.init_params(key, jcfg)
+        return j_cast_floating(params, jnp.bfloat16), axes
+
+    mesh = MeshSpec(dp=1).build(jax.devices()[:1])
+    sinit, sstep, _ = build_sharded_train(
+        j_init, lambda p, b: jgpt2.loss_fn(p, b, jcfg), mesh,
+        optimizer=optax.adafactor(learning_rate=1e-2), master_fp32=False)
+    jparams, jopt, jstep = sinit(jax.random.PRNGKey(0))
+    init_tree = jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(0))[0])
+
+    def init_fn(_generator):
+        model = cast_floating(tgpt2.GPT2(tcfg), torch.bfloat16)
+        model.load_state_dict(gpt2_params_from_numpy(init_tree, tcfg))
+        return model
+
+    tinit, tstep = build_train(init_fn, lambda m, b: m.loss_fn(b),
+                               optimizer=toptim.adafactor(1e-2),
+                               master_fp32=False, device="cpu")
+    model, topt, step = tinit(0)
+    rng = np.random.default_rng(0)
+    start = prev = _leaves(init_tree)
+    slack = [np.zeros(()) for _ in start]
+    for i in range(3):
+        tokens = rng.integers(0, 256, (2, 65)).astype(np.int32)
+        jparams, jopt, jstep, jm = sstep(jparams, jopt, jstep,
+                                         {"tokens": jnp.asarray(tokens)})
+        model, topt, step, tm = tstep(model, topt, step,
+                                      {"tokens": torch.from_numpy(tokens)})
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=1e-3)
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-2)
+        ref = _leaves(jparams)
+        ours = jax.tree.leaves(gpt2_tree_to_numpy(
+            dict(model.named_parameters()), tcfg))
+        num = den = 0.0
+        for k, (p0, p1, pj, pt) in enumerate(zip(start, prev, ref, ours)):
+            slack[k] = slack[k] + 2 * np.abs(pj - p1).max()
+            tol = 3 * 2.0 ** -7 * np.abs(pj) + slack[k]
+            assert np.all(np.abs(pt - pj) <= tol), (i, k)
+            num += float(np.sum((pt - pj) ** 2))
+            den += float(np.sum((pj - p0) ** 2))
+        change_err = (num / den) ** 0.5
+        print(f"pure-bf16 adafactor step {i}: loss {float(tm['loss']):.6f} "
+              f"(JAX {float(jm['loss']):.6f}); change of the parameters "
+              f"{change_err:.4f} (L2) from the reference's")
+        assert change_err < 0.15
+        prev = ref
+    assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
+    fs = topt["inner"][0]
+    assert {t.dtype for k in ("v_row", "v_col", "v") for t in fs[k]
+            if t is not None} == {torch.bfloat16}
