@@ -25,8 +25,9 @@ Phases; any failure exits non-zero:
      points, where the reference runs _flash_fwd_kernel), [1,2,4096,64]
      non-causal, and [64,12,197,64] non-causal (ViT-B/16; ~15-30 s). K4-K6:
      llama-tiny's [2,4,64,16] fp32 causal, fp32 at D 64, 128 and 256 and
-     at D 1, bf16 at D 32, fp16 at D 80, and [8,12,1024,64] fp32 (fp32
-     within 1e-5, 16-bit within phase 3's tolerance; ~2 s);
+     at D 1, bf16 at D 32, fp16 at D 80, [8,12,1024,64] fp32,
+     [1,2,8192,64] fp32 (bench_ring_parity's shape) and [4,16,1024,80]
+     fp16 (fp32 within 1e-5, 16-bit within phase 3's tolerance; ~5 s);
   4. after a second of warm-up, times each kernel at the GPT-2 shape
      (device time per call, from torch.profiler) beside its plain
      version, its bound from the data-sheet peaks, and
@@ -34,9 +35,10 @@ Phases; any failure exits non-zero:
      (never used by the port), and prints K1 / SDPA forward and K2 / SDPA
      backward; then K1, K2, K3 and SDPA's forward and backward at
      [1,16,16384,64] bf16 causal, each beside its bound; then K4-K6 at
-     llama-tiny's shape and at [8,12,1024,64] fp32, against their plain
-     versions, SDPA's fp32 forward and their bound at the fp32 rate of the
-     CUDA cores;
+     llama-tiny's shape and at [8,12,1024,64] fp32, and K4 also at
+     [1,2,8192,64] fp32 and [4,16,1024,80] fp16, against their plain
+     versions, SDPA's forward in the same dtype and their bound (fp32: the
+     CUDA cores' 67 TFLOP/s; fp16: the tensor cores');
   5. checks a tiny GPT-2 training step through the kernels against the
      same step through the plain attention, then trains gpt2-124m (bf16,
      fp32 master, adamw_lowmem, batch 8, seq 1024) for 2 + 5 steps with
@@ -60,7 +62,8 @@ Phases; any failure exits non-zero:
      "length" and 128 tokens and the page pool to drain; checks a prefix
      hit (>= 112 matched tokens); replays one seeded temperature-0.8
      request and requires the same 128 tokens, with no block graph
-     captured after warmup; times the sampler every decode step runs;
+     captured after warmup; times the sampler every decode step runs
+     and its Gumbel noise beside the same noise with torch.log;
      calls LLMServer once plain and once streaming;
   7. on-device PPO at bench.py's bench_ppo shape: OnDevicePPO(atari_sim(256),
      rollout_length=128, minibatches=8, num_sgd_iter=4), the Nature-CNN
@@ -168,15 +171,18 @@ TOL_REMAT_LOSS = 1e-3
 TOL_PPO_NET = 5e-2
 TOL_GAE = 1e-5
 TOL_GRAPH = 1e-3
-GUMBEL_ABS = 2e-6  # the card's and the CPU's fp32 log may differ an ulp
 # Fault C3's phase: llama-tiny's loss at this batch and sequence length.
 C3_BATCH, C3_SEQ = 2, 64
 # bench.py's bench_ppo: envs, rollout length, epochs, minibatches.
 PPO_SHAPE = (256, 128, 4, 8)
 
-# How every kernel is built (csrc/hopper.cuh): TMA loads under mbarriers
-# feeding wgmma.
+# How every kernel is built. K1-K3 (csrc/hopper.cuh): TMA loads under
+# mbarriers feeding wgmma. K4: register-blocked outer products on the CUDA
+# cores fed by cp.async; K5, K6: a lane a streamed row (csrc/general.cuh).
 DESIGN = "wgmma_tma"
+GENERAL_DESIGN = {"flash_fwd_general": "regblock_cpasync",
+                  "flash_bwd_dkdv_general": "simt",
+                  "flash_bwd_dq_general": "simt"}
 
 
 def smi_line():
@@ -240,21 +246,26 @@ def time_ms(torch, fn, warmup=3, reps=20):
     kernels and copies it puts on the card (torch.profiler), summed over
     ``reps`` calls and averaged. Host time between launches is left out:
     CUDA events around each call would time the host wherever it is slower
-    than the kernels. Fails if the profiler sees no device activity."""
+    than the kernels. A window in which the profiler records no device
+    activity at all (seen once in dozens of windows a run) is profiled
+    again, up to three windows; then it fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    require(us > 0, "torch.profiler saw no device activity to time")
-    return us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+        print("time_ms: torch.profiler recorded no device activity; again")
+    require(False, "torch.profiler saw no device activity to time")
 
 
 def causal_pairs(sq, sk, causal):
@@ -372,7 +383,9 @@ def main(argv):
           f"{time.perf_counter() - t0:.3f} s wall")
 
     # -- 3c. the general kernels: llama-tiny's shape first, then fp32 at D
-    # 64, 128 and 256, bf16 at D 32, fp16 at D 80, and D 1 ---------------
+    # 64, 128 and 256, bf16 at D 32, fp16 at D 80, D 1, and K4's timed
+    # shapes: fp32 GPT-2, bench_ring_parity's [1,2,8192,64] fp32 and
+    # [4,16,1024,80] fp16 --------------------------------------------------
     t0 = time.perf_counter()
     f32 = torch.float32
     tiny_llama = llama.CONFIGS["llama-tiny"]
@@ -382,7 +395,8 @@ def main(argv):
         (2, 4, 200, 130, 64, True, f32),
         (2, 4, 130, 200, 128, False, f32), (2, 4, 100, 100, 32, False, bf),
         (2, 4, 70, 150, 80, True, fp), (1, 2, 48, 48, 256, True, f32),
-        (1, 2, 33, 33, 1, True, f32), (8, 12, 1024, 1024, 64, True, f32)],
+        (1, 2, 33, 33, 1, True, f32), (8, 12, 1024, 1024, 64, True, f32),
+        (1, 2, 8192, 8192, 64, True, f32), (4, 16, 1024, 1024, 80, True, fp)],
         gen, general=True)
     print(f"phase 3c (general kernels): {time.perf_counter() - t0:.3f} s "
           "wall")
@@ -462,6 +476,11 @@ def main(argv):
     long_s = long_s_timings(torch, A, gen)
     general_time = general_timings(torch, A, gen, c3_shape)
     general_time_gpt2 = general_timings(torch, A, gen, (8, 12, 1024, 64))
+    k4_time = {"[1,2,8192,64] fp32": general_timings(
+        torch, A, gen, (1, 2, 8192, 64), names=("flash_fwd_general",)),
+               "[4,16,1024,80] fp16": general_timings(
+        torch, A, gen, (4, 16, 1024, 80), torch.float16,
+        names=("flash_fwd_general",))}
     print(f"phase 4 (timings): {time.perf_counter() - t_timing:.3f} s wall")
 
     # -- 5a. tiny GPT-2 step: kernels against the plain attention ------------
@@ -620,6 +639,7 @@ def main(argv):
         k["max_abs_err_gpt2_774m_1.5b_shapes"] = path_errs[name]
     # K4-K6: their path is fault C3's phase (llama-tiny fp32 on the card),
     # timed at its shape and, for scale, at GPT-2 124M's shape in fp32.
+    # K4 also at bench_ring_parity's fp32 shape and at fp16 D 80.
     for name, rep_ in (("flash_fwd_general", rows["flash_fwd"]),
                        ("flash_bwd_dkdv_general", rows["flash_bwd_dkdv"]),
                        ("flash_bwd_dq_general", rows["flash_bwd_dq"])):
@@ -629,8 +649,10 @@ def main(argv):
             replaces=rep_["replaces"] + ", for fp32 and head dims other "
                                         "than 64 and 128",
             launches=c3_launches[name], max_abs_err=general_errs[name],
-            **general_time[name], design="simt", ptxas=ptxas[name],
-            shape=list(c3_shape), at_gpt2_124m_fp32=general_time_gpt2[name]))
+            **general_time[name], design=GENERAL_DESIGN[name],
+            ptxas=ptxas[name], shape=list(c3_shape),
+            at_gpt2_124m_fp32=general_time_gpt2[name]))
+    kernels[-3]["at"] = {s: t["flash_fwd_general"] for s, t in k4_time.items()}
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
@@ -796,17 +818,10 @@ def ppo_phase(torch, A, dev, profile_root=None):
     on_card, on_cpu = draws(dev), draws(cpu)
     torch.cuda.synchronize()
     for name, ref in on_cpu.items():
-        got = on_card[name].cpu()
-        if name == "gumbel":
-            e = (got - ref).abs().max().item()
-            print(f"check threefry {name} {list(ref.shape)} card vs CPU: max "
-                  f"abs {e:.3e} (tol {GUMBEL_ABS})")
-            require(e <= GUMBEL_ABS, f"threefry {name} on the card")
-        else:
-            same = torch.equal(got, ref)
-            print(f"check threefry {name} {list(ref.shape)} card vs CPU: "
-                  f"bit-equal {same}")
-            require(same, f"threefry {name} on the card")
+        same = torch.equal(on_card[name].cpu(), ref)
+        print(f"check threefry {name} {list(ref.shape)} card vs CPU: "
+              f"bit-equal {same}")
+        require(same, f"threefry {name} on the card")
 
     # -- env steps on the card against the CPU ---------------------------------
     envs = {"card": ondevice.atari_sim(N, dev), "cpu": ondevice.atari_sim(N, cpu)}
@@ -1219,9 +1234,19 @@ def serve_phase(torch, A, dev, profile_root=None):
     t_sample = time_ms(torch, lambda: sampling.sample(logits, temps, seeds,
                                                       qpos))
     t_argmax = time_ms(torch, lambda: torch.argmax(logits, dim=-1))
+    # The Gumbel noise with XLA's log (the sampler's) against the same
+    # noise with torch.log, which differs from XLA's in the last bit.
+    from ray_tpu_torch import random as trandom
+    key = trandom.fold_in(trandom.prng_key(seeds), qpos)
+    shape = (cfg.vocab_size,)
+    tiny = torch.finfo(torch.float32).tiny
+    t_noise = time_ms(torch, lambda: trandom.gumbel(key, shape))
+    t_noise_torch = time_ms(torch, lambda: -torch.log(-torch.log(
+        trandom.uniform(key, shape, minval=tiny))))
     print(f"sampler: sampling.sample on [{engine.num_slots}, "
           f"{cfg.vocab_size}] {t_sample:.4f} ms of device time, argmax "
-          f"alone {t_argmax:.4f} ms")
+          f"alone {t_argmax:.4f} ms; its Gumbel noise {t_noise:.4f} ms "
+          f"(with torch.log instead of XLA's: {t_noise_torch:.4f} ms)")
     if profile_root is not None:
         profile_decode(torch, model, engine, profile_root)
     del engine, model
@@ -1396,20 +1421,24 @@ def general_launches(A):
     return sum(f.launches for f in A.GENERAL_WRAPPERS)
 
 
-def general_timings(torch, A, gen, shape):
-    """K4, K5 and K6 at fp32 causal ``shape`` [b, h, s, d]: device time a
-    call beside the plain version, the bound (fp32 operations on the CUDA
-    cores, fp32 bytes) and SDPA's fp32 forward as the forward's yardstick."""
+def general_timings(torch, A, gen, shape, dtype=None, names=None):
+    """K4, K5 and K6 (or ``names``) at causal ``shape`` [b, h, s, d] in
+    ``dtype`` (fp32 by default): device time a call beside the plain
+    version, the bound (the type's peak: fp32 on the CUDA cores, 16-bit on
+    the tensor cores; bytes of the type) and SDPA's forward in the same
+    dtype as the forward's yardstick."""
     import torch.nn.functional as F
 
+    dtype = dtype or torch.float32
     b, h, s, d = shape
     sc = d ** -0.5
-    q, k, v, do = (torch.randn(shape, generator=gen, device=gen.device)
-                   for _ in range(4))
+    q, k, v, do = (torch.randn(shape, generator=gen, device=gen.device,
+                               dtype=dtype) for _ in range(4))
     o, lse = A.flash_fwd_general(q, k, v, True, sc)
     delta = (do.float() * o.float()).sum(-1)
     pairs = b * h * causal_pairs(s, s, True)
-    elem, stat = b * h * s * d * 4, b * h * s * 4
+    elem, stat = b * h * s * d * q.element_size(), b * h * s * 4
+    peak = PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     rows = {
         "flash_fwd_general": (
             lambda: A.flash_fwd_general(q, k, v, True, sc),
@@ -1429,17 +1458,19 @@ def general_timings(torch, A, gen, shape):
             None, 6 * d * pairs, 5 * elem + 2 * stat),
     }
     out = {}
-    for name, (fn, plain, lib, flops, nbytes) in rows.items():
+    for name in names or rows:
+        fn, plain, lib, flops, nbytes = rows[name]
         ms = time_ms(torch, fn)
         plain_ms = time_ms(torch, plain, warmup=1, reps=5)
         lib_ms = time_ms(torch, lib) if lib else None
-        b_ms, b_by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+        b_ms, b_by = bound(flops, nbytes, peak)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by)
-        print(f"time {name} {list(shape)} fp32 causal: {ms:.4f} ms; plain "
-              f"{plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} at "
-              f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32 "
-              f"({100 * b_ms / ms:.1f}% of bound); library "
+        print(f"time {name} {list(shape)} {str(dtype).split('.')[-1]} "
+              f"causal: {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+              f"{b_ms:.4f} ms by {b_by} at {peak / 1e12:.0f} TFLOP/s "
+              f"({100 * b_ms / ms:.1f}% of bound, {flops / ms / 1e9:.2f} "
+              f"TFLOP/s); library "
               f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()

@@ -9,8 +9,8 @@ client-seeded retry replayed on another replica, continues with the same
 tokens.
 
 The draws are ``ray_tpu_torch.random``'s, the same bits as JAX's
-default PRNG; the Gumbel noise agrees with XLA's to about 1e-6 absolute,
-so a token differs only where two candidates tie within that.
+default PRNG, and the Gumbel noise is XLA's bit for bit (``xla_log``), so
+given the same logits the tokens are the same.
 """
 
 from __future__ import annotations

@@ -9,115 +9,285 @@
 //
 // Layout and masks as K1: q [B,H,Sq,D], k/v [B,H,Sk,D] contiguous, o like
 // q, lse fp32 [B,H,Sq]; causal at absolute positions (q >= k) with
-// masked keys at -1e30 as in the reference, keys past Sk left out.
+// masked keys at kMasked = -1e30 as in the reference, keys past Sk left
+// out. P is rounded to the operand type before P V; l sums it unrounded.
 //
-// Bound: at fp32 the work is 4*D flops per (query, key) pair on the CUDA
-// cores (67 TFLOP/s) against 4*S*D*4 bytes: for S in the hundreds the
-// operations bound it. The design (general.cuh) is the simple one: the
-// query rows of a block in shared memory, K and V tiles of 32 keys streamed
-// through shared memory (each read once a block), an online softmax a row
-// in a warp's registers, every sum in fp32. Tiles past the causal diagonal
-// are not loaded.
+// Bound: 4 * D flops a (query, key) pair the mask keeps, on the CUDA cores
+// at 67 TFLOP/s fp32 (H100 SXM): 0.1925 ms at [8,12,1024,64] fp32 causal,
+// where the bytes (4 * 25 MB) take 0.03 ms. Why CUDA cores and not the
+// tensor cores: the card holds this kernel to 1e-5 of the plain version in
+// fp32, as the reference computes fp32 in fp32. TF32 keeps ~3 digits, and
+// an exact 3xTF32 split needs hi/lo copies of every operand and a
+// transposed V for wgmma's K-major B, for twelve instantiations: too much
+// for one step. 16-bit inputs share this fp32 path.
+//
+// Design. A block of four warps owns BM = 16 TM query rows of one (b, h)
+// and streams K and V in tiles of BN = 8 TN keys. Each thread holds a
+// TM x TN micro-tile of S = Q K^T and a TM x 4 DL micro-tile of O (its TM
+// rows, columns 32 e + 4 cg + c), both in registers, so the two products
+// are outer products over shared memory:
+//   - Q K^T: Q and K stay row-major in shared memory (the layout cp.async
+//     can fill) and a k-step takes 4 head-dim columns: one 16-byte load (8
+//     for 16-bit, widened to fp32 in registers) per row of Q and of K
+//     feeds 4 TM TN FMAs, 10.7 FMAs a load at TM 4, TN 8 (the SIMT kernel
+//     did 2 loads an FMA). smem_ld pads rows to an odd number of 16-byte
+//     units, so the 8 rows a load instruction touches hit 8 bank groups.
+//   - P V: each thread writes its P (rounded to T) to a per-warp slice of
+//     shared memory, its TM rows adjacent, and reads them back as one
+//     vector per key beside DL 16-byte loads of V: 10.7 FMAs a load at
+//     DL 2.
+//   - Softmax: a row is shared by the 8 threads of a column group, so its
+//     max and sum take 3 shuffles (the SIMT kernel: 5 per row and key
+//     tile of 32, per warp); exp2 with log2(e) folded into the scale. 64
+//     query rows a block (the SIMT kernel: 16) read each K/V tile a
+//     quarter as often.
+//   - What is left: per head-dim column (or key) a thread reads TM + TN
+//     words for TM TN FMAs, 12 for 32 at 4 x 8, so the SM's 32 words a
+//     cycle of shared memory cap both products at 2/3 of the FMA rate. 8 x 8 micro-tiles would lift that, but with
+//     this layout they take 255 registers, spill, and measured twice as
+//     slow (k4_variants.py).
+// Copies run by cp.async (16 bytes where the rows and pointers allow, 4
+// otherwise, plain loads for 16-bit inputs at odd head dims) into one
+// buffer each for K and V, staggered: V's tile t lands while S is
+// computed from K's, and K's tile t + 1 while O is accumulated from V's.
+// Two __syncthreads a tile; one buffer each keeps a block small enough
+// for three an SM at D 64 (the SIMT kernel's copies were synchronous).
+// Row tiles are launched longest causal work first; no tile past the
+// diagonal is loaded, and only the diagonal tile and the Sk edge are
+// masked.
+//
+// Tiles by DL = ceil(D / 32) rounded to a power of two (fp32 shared
+// memory a block, and the blocks an SM it leaves room for):
+//   DL 1, 2: TM 4, TN 8 (BM 64, BN 64), 68 KB at D 64: 3;
+//   DL 4:    TM 4, TN 4 (BM 64, BN 32), 74.5 KB at D 128: 3;
+//   DL 8:    TM 2, TN 4 (BM 32, BN 32), 102 KB at D 256: 2.
 #include "general.cuh"
 
 namespace rtt {
 namespace general {
 namespace {
 
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int DL>
+struct FwdTile {
+  static constexpr int TM = DL == 8 ? 2 : 4;  // query rows a thread
+  static constexpr int TN = DL >= 4 ? 4 : 8;  // keys a thread, a tile
+  static constexpr int BM = 16 * TM;          // 4 warps x 4 row groups
+  static constexpr int BN = 8 * TN;           // 8 column groups
+  static constexpr int LDP = BM + 4;          // P's row stride (floats)
+};
+
+template <typename T, int DL>
+size_t fwd_smem(int D) {
+  using F = FwdTile<DL>;
+  return sizeof(T) * static_cast<size_t>(smem_ld<T>(D)) * (F::BM + 2 * F::BN) +
+         sizeof(float) * F::BN * F::LDP;
+}
+
 template <typename T, int DL>
 __global__ void __launch_bounds__(kThreads)
     fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ o,
                float* __restrict__ lse, int Sq, int Sk, int D, int causal,
-               float scale) {
-  extern __shared__ float smem[];
-  const int ldk = D + 1;
-  float* Qs = smem;              // [kRows][D]
-  float* Ks = Qs + kRows * D;    // [kTile][D + 1]
-  float* Vs = Ks + kTile * ldk;  // [kTile][D]
+               float scale_log2, int copy_bytes) {
+  using F = FwdTile<DL>;
+  constexpr int TM = F::TM, TN = F::TN, BM = F::BM, BN = F::BN;
+  extern __shared__ uint4 smem_raw[];
+  const int ld = smem_ld<T>(D);
+  const int D4 = (D + 3) & ~3;
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BM][ld]
+  T* Ks = Qs + BM * ld;                    // [BN][ld]
+  T* Vs = Ks + BN * ld;                    // [BN][ld]
+  float* Ps = reinterpret_cast<float*>(Vs + BN * ld);  // [BN][LDP]
+
   const size_t bh = blockIdx.x;
-  const int r0 = blockIdx.y * kRows;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest rows first
   q += bh * Sq * D;
   k += bh * Sk * D;
   v += bh * Sk * D;
   o += bh * Sq * D;
   lse += bh * Sq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = lane / 8, cg = lane % 8;
+  // This thread's rows are row0 + 4 a (a < TM), its keys in a tile cg +
+  // 8 b (b < TN), its columns of O 32 e + 4 cg + c (e < DL, c < 4); its
+  // rows sit side by side in P's columns from prow.
+  const int row0 = warp * 4 * TM + rg;
+  const int prow = warp * 4 * TM + rg * TM;
 
-  load_rows(Qs, D, q, r0, kRows, Sq, D);
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DL];
+  // Columns D to D4 of every tile row are read as zeros; no copy writes
+  // them.
+  if (D4 > D) {
+    const int pad = D4 - D;
+    for (int i = threadIdx.x; i < (BM + 2 * BN) * pad; i += kThreads)
+      Qs[(i / pad) * ld + D + i % pad] = from_f<T>(0.f);
+  }
+  const CopyPlan plan = copy_plan<T>(D, copy_bytes);
+  copy_rows(Qs, ld, q, r0, BM, Sq, D, plan);
+  copy_rows(Ks, ld, k, 0, BN, Sk, D, plan);
+
+  float m[TM], l[TM], acc[TM][DL][4];
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m[rr] = -INFINITY;
-    l[rr] = 0.f;
+  for (int a = 0; a < TM; ++a) {
+    m[a] = -INFINITY;
+    l[a] = 0.f;
 #pragma unroll
-    for (int t = 0; t < DL; ++t) acc[rr][t] = 0.f;
+    for (int e = 0; e < DL; ++e)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][e][c] = 0.f;
   }
   // Row i sees keys j <= i: keys past the block's last row are all masked.
-  const int kend = causal ? min(Sk, r0 + kRows) : Sk;
-  for (int j0 = 0; j0 < kend; j0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    load_rows(Ks, ldk, k, j0, kTile, Sk, D);
-    load_rows(Vs, D, v, j0, kTile, Sk, D);
+  const int kend = causal ? min(Sk, r0 + BM) : Sk;
+  const int ntiles = (kend + BN - 1) / BN;
+  for (int t = 0; t < ntiles; ++t) {
+    const int j0 = t * BN;
+    // K's tile t has landed, and every warp is done with V's tile t - 1
+    // and with its slice of P: V's tile t lands while S is computed.
+    cp_async_wait_all();
     __syncthreads();
-    const int j = j0 + lane;
+    copy_rows(Vs, ld, v, j0, BN, Sk, D, plan);
+
+    // S = Q K^T, 4 head-dim columns a step.
+    float s[TM][TN];
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      const int i = r0 + r;
-      if (i >= Sq) continue;  // the same for the whole warp
-      float s = dot(Qs + r * D, Ks + lane * ldk, D) * scale;
-      if (j >= Sk)
-        s = -INFINITY;
-      else if (causal && j > i)
-        s = kMasked;
-      // j0 < Sk, so lane 0's key is real and mn is finite.
-      const float mn = fmaxf(m[rr], warp_max(s));
-      const float p = expf(s - mn);
-      const float alpha = expf(m[rr] - mn);
-      l[rr] = l[rr] * alpha + warp_sum(p);
-      m[rr] = mn;
+    for (int a = 0; a < TM; ++a)
 #pragma unroll
-      for (int t = 0; t < DL; ++t) acc[rr][t] *= alpha;
-      // P rounded to the operand type before P V, as K1 and the reference
-      // round it (a no-op at fp32); l sums it unrounded.
-      const float pr = round_to<T>(p);
-      for (int jj = 0; jj < kTile; ++jj) {
-        const float pj = __shfl_sync(kFull, pr, jj);
-        const float* vr = Vs + jj * D;
+      for (int b = 0; b < TN; ++b) s[a][b] = 0.f;
 #pragma unroll
-        for (int t = 0; t < DL; ++t) {
-          const int d = lane + 32 * t;
-          if (d < D) acc[rr][t] = fmaf(pj, vr[d], acc[rr][t]);
+    for (int d = 0; d < 32 * DL; d += 4) {
+      if (d >= D4) break;
+      float qf[TM][4], kf[TN][4];
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+        load_vec<4>(qf[a], Qs + (row0 + 4 * a) * ld + d);
+#pragma unroll
+      for (int b = 0; b < TN; ++b)
+        load_vec<4>(kf[b], Ks + (cg + 8 * b) * ld + d);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int a = 0; a < TM; ++a)
+#pragma unroll
+          for (int b = 0; b < TN; ++b)
+            s[a][b] = fmaf(qf[a][c], kf[b][c], s[a][b]);
+    }
+
+    // Scores in log2 units; the causal diagonal and the Sk edge masked.
+    const bool edge = (causal && j0 + BN - 1 > r0) || j0 + BN > Sk;
+#pragma unroll
+    for (int a = 0; a < TM; ++a)
+#pragma unroll
+      for (int b = 0; b < TN; ++b) {
+        float x = s[a][b] * scale_log2;
+        if (edge) {
+          const int i = r0 + row0 + 4 * a, j = j0 + cg + 8 * b;
+          if (j >= Sk)
+            x = -INFINITY;
+          else if (causal && j > i)
+            x = kMasked;
+        }
+        s[a][b] = x;
+      }
+
+    // Online softmax. Key 0 is in tile 0 and every row sees it, so the
+    // running max is finite from the first tile on.
+#pragma unroll
+    for (int a = 0; a < TM; ++a) {
+      float mx = s[a][0];
+#pragma unroll
+      for (int b = 1; b < TN; ++b) mx = fmaxf(mx, s[a][b]);
+      const float mn = fmaxf(m[a], group_max<8>(mx));
+      const float alpha = exp2f(m[a] - mn);
+      float sum = 0.f;
+#pragma unroll
+      for (int b = 0; b < TN; ++b) {
+        const float p = exp2f(s[a][b] - mn);
+        sum += p;
+        s[a][b] = round_to<T>(p);  // as the reference rounds P for P V
+      }
+      l[a] = l[a] * alpha + group_sum<8>(sum);
+      m[a] = mn;
+#pragma unroll
+      for (int e = 0; e < DL; ++e)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[a][e][c] *= alpha;
+    }
+#pragma unroll
+    for (int b = 0; b < TN; ++b) {
+      float pb[TM];
+#pragma unroll
+      for (int a = 0; a < TM; ++a) pb[a] = s[a][b];
+      store_vec<TM>(Ps + (cg + 8 * b) * F::LDP + prow, pb);
+    }
+    // V's tile t has landed and P is written, and every warp is done with
+    // K's tile t: K's tile t + 1 lands while O is accumulated.
+    cp_async_wait_all();
+    __syncthreads();
+    if (t + 1 < ntiles) copy_rows(Ks, ld, k, j0 + BN, BN, Sk, D, plan);
+
+    // O += P V over the tile's keys. Past kend P is 0, and past Sk V's
+    // rows are zeros too.
+#pragma unroll
+    for (int j = 0; j < BN; ++j) {
+      float pf[TM];
+      load_vec<TM>(pf, Ps + j * F::LDP + prow);
+#pragma unroll
+      for (int e = 0; e < DL; ++e) {
+        const int col = 32 * e + 4 * cg;
+        if (col < D4) {
+          float vf[4];
+          load_vec<4>(vf, Vs + j * ld + col);
+#pragma unroll
+          for (int a = 0; a < TM; ++a)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              acc[a][e][c] = fmaf(pf[a], vf[c], acc[a][e][c]);
         }
       }
     }
   }
+
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int i = r0 + warp * kRowsPerWarp + rr;
+  for (int a = 0; a < TM; ++a) {
+    const int i = r0 + row0 + 4 * a;
     if (i >= Sq) continue;
-    const float ll = l[rr] > 0.f ? l[rr] : 1.f;
+    const float ll = l[a] > 0.f ? l[a] : 1.f;
     const float inv = 1.f / ll;
+    T* orow = o + static_cast<size_t>(i) * D;
 #pragma unroll
-    for (int t = 0; t < DL; ++t) {
-      const int d = lane + 32 * t;
-      if (d < D) o[static_cast<size_t>(i) * D + d] = from_f<T>(acc[rr][t] * inv);
-    }
-    if (lane == 0) lse[i] = m[rr] + logf(ll);
+    for (int e = 0; e < DL; ++e)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 32 * e + 4 * cg + c;
+        if (col < D) orow[col] = from_f<T>(acc[a][e][c] * inv);
+      }
+    if (cg == 0) lse[i] = m[a] * kLn2 + logf(ll);
   }
+}
+
+// The copy size (16 or 4 bytes) that every row of q, k and v is made of
+// and that their addresses are aligned to; 0 for none (16-bit inputs at an
+// odd head_dim, or misaligned views).
+int copy_size(const void* q, const void* k, const void* v, size_t row) {
+  const size_t addr = reinterpret_cast<size_t>(q) |
+                      reinterpret_cast<size_t>(k) |
+                      reinterpret_cast<size_t>(v) | row;
+  return addr % 16 == 0 ? 16 : addr % 4 == 0 ? 4 : 0;
 }
 
 template <typename T, int DL>
 int run(const void* q, const void* k, const void* v, void* o, float* lse,
         int BH, int Sq, int Sk, int D, int causal, float scale,
         cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (kRows * D + kTile * (D + 1) + kTile * D);
-  return launch(fwd_kernel<T, DL>, BH, Sq, smem, stream,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Sk, D,
-                causal, scale);
+  using F = FwdTile<DL>;
+  const dim3 grid(BH, (Sq + F::BM - 1) / F::BM);
+  return launch_grid(fwd_kernel<T, DL>, grid, fwd_smem<T, DL>(D), stream,
+                     static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), static_cast<T*>(o), lse, Sq,
+                     Sk, D, causal, scale * kLog2e,
+                     copy_size(q, k, v, sizeof(T) * D));
 }
 
 }  // namespace

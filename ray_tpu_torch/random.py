@@ -19,10 +19,8 @@ runs inside a CUDA graph.
 
 ``uniform`` and ``randint`` follow ``jax/_src/random.py`` ``_uniform``
 and ``_randint`` operation for operation, so their draws are bit-equal.
-The Gumbel noise is ``-log(-log(u))``: PyTorch's and XLA's fp32 ``log``
-round differently in the last bit of some floats, so the noise agrees to
-about 1e-6 absolute and ``categorical`` differs only where two
-candidates tie within that.
+The Gumbel noise is ``-log(-log(u))`` with XLA's own fp32 ``log``
+(``xla_log``), so it is bit-equal too, and so is ``categorical``.
 """
 
 from __future__ import annotations
@@ -159,11 +157,74 @@ def permutation(key: Key, n: int) -> torch.Tensor:
     return x
 
 
+# XLA's CPU fp32 ``log`` (Cephes' polynomial, as in Eigen's ``plog``): the
+# mantissa's log1p by a degree-9 polynomial, plus the exponent times ln 2
+# split in two parts. The constants are fp32, held as Python floats.
+_LOG_P = tuple(float(np.float32(c)) for c in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1 = float(np.float32(-2.12194440e-4))
+_LOG_Q2 = 0.693359375
+_SQRT_HALF = float(np.float32(0.707106781186547524))
+
+
+def _fma_to_odd(a, b, c) -> torch.Tensor:
+    """fp32 ``fma(a, b, c)``, rounded once, for fp32 ``a`` and ``c`` and a
+    float64 ``b`` that holds fp32 values: the float64 product is exact,
+    the float64 sum is rounded to odd (an inexact sum goes to the odd of
+    its two neighbours, by the sign of its exact remainder), and rounding
+    that to fp32 gives the correctly rounded result."""
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)  # two-sum: exactly p + c - s
+    bits = s.view(torch.int64)
+    bits = torch.where(err * s < 0, bits - 1, bits) | (err != 0)
+    return bits.view(torch.float64).float()
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """fp32 natural log of positive normal ``x``, bit for bit as XLA's CPU
+    backend computes it: ``frexp`` to m in [0.5, 1), folded to
+    [sqrt(1/2), sqrt(2)) and shifted by 1; the polynomial by Horner in
+    three interleaved parts; then ``e * q1``, ``-x**2 / 2`` and
+    ``e * q2`` added in XLA's order, its multiply-adds fused.
+
+    Each fused step is one rounding of the exact result. The products of
+    ``x`` with a coefficient sum values on grids of 2**-51 or coarser
+    below 0.5: exact in float64, rounded once to fp32. ``x**2 / 2`` and
+    ``e * q2`` are exact in fp32, so those steps are fp32 additions. The
+    products with ``x**3`` go through ``_fma_to_odd``. Zero, subnormals,
+    infinities and negative inputs are not handled: the callers floor at
+    fp32 ``tiny``."""
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 126).float()
+    m = ((bits & 0x807FFFFF) | 0x3F000000).view(torch.float32)
+    fold = m < _SQRT_HALF
+    x = torch.where(fold, m + m, m) - 1.0  # exact
+    e = torch.where(fold, e - 1.0, e)
+    x2 = x * x
+    x3 = (x2 * x).double()
+    xd = x.double()
+    p = _LOG_P
+    y = (xd * p[0] + p[1]).float()
+    y1 = (xd * p[3] + p[4]).float()
+    y2 = (xd * p[6] + p[7]).float()
+    y = (y * xd + p[2]).float()
+    y1 = (y1 * xd + p[5]).float()
+    y2 = (y2 * xd + p[8]).float()
+    y = _fma_to_odd(y, x3, y1)
+    y = _fma_to_odd(y, x3, y2)
+    y = _fma_to_odd(y, x3, e * _LOG_Q1)
+    return (x - x2 * 0.5) + y + e * _LOG_Q2
+
+
 def gumbel(key: Key, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.gumbel``: ``-log(-log(u))`` of ``uniform`` floored at
-    fp32 ``tiny``."""
+    fp32 ``tiny``, with XLA's ``log``."""
     tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(uniform(key, shape, minval=tiny)))
+    return -xla_log(-xla_log(uniform(key, shape, minval=tiny)))
 
 
 def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:

@@ -14,8 +14,9 @@ first ``iterate`` (``.to()``, ``load_state_dict`` with new tensors): the
 graph holds their addresses. ``snapshot``/``restore`` copy them.
 
 Draws follow ``jax.random`` key for key (``ray_tpu_torch.random``), so
-with the same parameters the port takes the JAX program's actions but
-where the Gumbel noise (about 1e-6 off XLA's) splits a near-tie. The
+with the same parameters the port takes the JAX program's actions: the
+Gumbel noise is XLA's bit for bit, so only logits that differ in their
+last bits can split a near-tie. The
 draws depend only on keys, so a rollout makes all of its noise and env
 resets up front, in a few large draws instead of 128 small ones.
 """

@@ -417,6 +417,8 @@ def test_cuda_fp32_llama_runs_the_general_kernels(cuda):
     (70, 150, 80, True, torch.float16),      # causal Sq < Sk, D not /32
     (48, 48, 256, True, torch.float32),      # the largest head_dim
     (33, 33, 1, True, torch.float32),
+    (8192, 8192, 64, True, torch.float32),   # bench_ring_parity's rows
+    (1024, 1024, 80, True, torch.float16),   # K4's fp16 timing shape
 ])
 def test_cuda_general_kernels_match_plain(cuda, sq, sk, d, causal, dtype):
     """K4-K6 against the plain versions on the same inputs: fp32 within

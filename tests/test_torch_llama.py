@@ -392,9 +392,8 @@ def test_sampler_tokens_match_jax(vocab):
 
 
 def test_gumbel_noise_close_to_jax():
-    """Same uniforms bit for bit; the Gumbel noise within 2e-6 absolute:
-    the two packages' fp32 ``log`` round differently by an ulp, which
-    the outer log turns into an absolute error of about 1e-6."""
+    """Same uniforms bit for bit, and the Gumbel noise too: both logs are
+    XLA's (``xla_log``)."""
     tiny = np.finfo(np.float32).tiny
     jkey = jax.random.fold_in(jax.random.PRNGKey(1), 7)
     key = trandom.fold_in(trandom.prng_key(1), 7)
@@ -403,7 +402,49 @@ def test_gumbel_noise_close_to_jax():
         np.asarray(jax.random.uniform(jkey, (100_000,), minval=tiny)))
     want = np.asarray(jax.random.gumbel(jkey, (100_000,)))
     got = trandom.gumbel(key, (100_000,)).numpy()
-    assert np.abs(got - want).max() <= 2e-6
+    np.testing.assert_array_equal(got, want)
+
+
+def test_xla_log_matches_jnp_log_bit_for_bit():
+    """``xla_log`` against ``jnp.log`` on 1,041,031 fp32 values: random
+    ones in (0, 1) and over every binade, the 81 floats around each power
+    of two and around each sqrt(1/2) * 2**e (where the mantissa's fold
+    switches), ``tiny``, 1, the largest float below 1 and the largest
+    finite one."""
+    f32 = np.float32
+    rng = np.random.default_rng(1)
+    parts = [rng.uniform(0, 1, 500_000).astype(f32),
+             (2.0 ** rng.uniform(-126, 128, 500_000)).astype(f32)]
+    exps = np.arange(-126, 128)
+    for base in (2.0 ** exps, np.sqrt(0.5) * 2.0 ** exps):
+        base = base.astype(f32).view(np.int32)
+        parts += [(base + k).view(f32) for k in range(-40, 41)]
+    parts.append(np.array([np.finfo(f32).tiny, 1, np.nextafter(f32(1), 0),
+                           np.finfo(f32).max], f32))
+    x = np.concatenate(parts)
+    x = x[np.isfinite(x) & (x >= np.finfo(f32).tiny)]
+    assert x.size >= 1_000_000
+    np.testing.assert_array_equal(trandom.xla_log(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jnp.log(x)))
+
+
+@pytest.mark.parametrize("a,b,c,want", [
+    # a * b + c just below the midpoint between two fp32 values, then just
+    # above it, then negated: float64 rounds each sum onto the midpoint.
+    (1 + 2 ** -15, 2 ** -24 * (1 - 2 ** -15), 1 + 2 ** -23, 1 + 2 ** -23),
+    (1 + 2 ** -10, 2 ** -24 * (1 - 2 ** -10 + 2 ** -20), 1.0, 1 + 2 ** -23),
+    (-(1 + 2 ** -15), 2 ** -24 * (1 - 2 ** -15), -(1 + 2 ** -23),
+     -(1 + 2 ** -23)),
+])
+def test_fma_to_odd_rounds_once(a, b, c, want):
+    """``xla_log``'s fused multiply-add where a float64 sum rounded again
+    to fp32 would round twice, and wrongly."""
+    f32 = lambda x, dt=torch.float32: torch.tensor([x], dtype=dt)
+    assert all(np.float32(x) == x for x in (a, b, c))
+    twice = (f32(a).double() * b + c).float().item()
+    assert twice != want
+    assert trandom._fma_to_odd(f32(a), f32(b, torch.float64),
+                               f32(c)).item() == want
 
 
 def test_argmax_ties_go_to_the_first_index():
