@@ -35,10 +35,12 @@ Phases; any failure exits non-zero:
      (never used by the port), and prints K1 / SDPA forward and K2 / SDPA
      backward; then K1, K2, K3 and SDPA's forward and backward at
      [1,16,16384,64] bf16 causal, each beside its bound; then K4-K6 at
-     llama-tiny's shape and at [8,12,1024,64] fp32, and K4 also at
-     [1,2,8192,64] fp32 and [4,16,1024,80] fp16, against their plain
+     llama-tiny's shape, at [8,12,1024,64] fp32 and at [4,16,1024,80]
+     fp16, and K4 also at [1,2,8192,64] fp32, against their plain
      versions, SDPA's forward in the same dtype and their bound (fp32: the
-     CUDA cores' 67 TFLOP/s; fp16: the tensor cores');
+     CUDA cores' 67 TFLOP/s; fp16: the tensor cores'), and K5+K6 beside
+     SDPA's backward (dq, dk, dv) in the same dtype and the backward's
+     bound (5 products);
   5. checks a tiny GPT-2 training step through the kernels against the
      same step through the plain attention, then trains gpt2-124m (bf16,
      fp32 master, adamw_lowmem, batch 8, seq 1024) for 2 + 5 steps with
@@ -177,12 +179,12 @@ C3_BATCH, C3_SEQ = 2, 64
 PPO_SHAPE = (256, 128, 4, 8)
 
 # How every kernel is built. K1-K3 (csrc/hopper.cuh): TMA loads under
-# mbarriers feeding wgmma. K4: register-blocked outer products on the CUDA
-# cores fed by cp.async; K5, K6: a lane a streamed row (csrc/general.cuh).
+# mbarriers feeding wgmma. K4-K6 (csrc/general.cuh): register-blocked
+# outer products on the CUDA cores, fed by staggered cp.async copies.
 DESIGN = "wgmma_tma"
-GENERAL_DESIGN = {"flash_fwd_general": "regblock_cpasync",
-                  "flash_bwd_dkdv_general": "simt",
-                  "flash_bwd_dq_general": "simt"}
+GENERAL_DESIGN = dict.fromkeys(
+    ("flash_fwd_general", "flash_bwd_dkdv_general", "flash_bwd_dq_general"),
+    "regblock_cpasync")
 
 
 def smi_line():
@@ -476,11 +478,11 @@ def main(argv):
     long_s = long_s_timings(torch, A, gen)
     general_time = general_timings(torch, A, gen, c3_shape)
     general_time_gpt2 = general_timings(torch, A, gen, (8, 12, 1024, 64))
-    k4_time = {"[1,2,8192,64] fp32": general_timings(
-        torch, A, gen, (1, 2, 8192, 64), names=("flash_fwd_general",)),
-               "[4,16,1024,80] fp16": general_timings(
-        torch, A, gen, (4, 16, 1024, 80), torch.float16,
-        names=("flash_fwd_general",))}
+    general_time_at = {
+        "[1,2,8192,64] fp32": general_timings(
+            torch, A, gen, (1, 2, 8192, 64), names=("flash_fwd_general",)),
+        "[4,16,1024,80] fp16": general_timings(
+            torch, A, gen, (4, 16, 1024, 80), torch.float16)}
     print(f"phase 4 (timings): {time.perf_counter() - t_timing:.3f} s wall")
 
     # -- 5a. tiny GPT-2 step: kernels against the plain attention ------------
@@ -638,8 +640,8 @@ def main(argv):
                            max_abs_err_vit_shape=vit_errs[name])
         k["max_abs_err_gpt2_774m_1.5b_shapes"] = path_errs[name]
     # K4-K6: their path is fault C3's phase (llama-tiny fp32 on the card),
-    # timed at its shape and, for scale, at GPT-2 124M's shape in fp32.
-    # K4 also at bench_ring_parity's fp32 shape and at fp16 D 80.
+    # timed at its shape and, for scale, at GPT-2 124M's shape in fp32 and
+    # at fp16 D 80; K4 also at bench_ring_parity's fp32 shape.
     for name, rep_ in (("flash_fwd_general", rows["flash_fwd"]),
                        ("flash_bwd_dkdv_general", rows["flash_bwd_dkdv"]),
                        ("flash_bwd_dq_general", rows["flash_bwd_dq"])):
@@ -651,8 +653,10 @@ def main(argv):
             launches=c3_launches[name], max_abs_err=general_errs[name],
             **general_time[name], design=GENERAL_DESIGN[name],
             ptxas=ptxas[name], shape=list(c3_shape),
-            at_gpt2_124m_fp32=general_time_gpt2[name]))
-    kernels[-3]["at"] = {s: t["flash_fwd_general"] for s, t in k4_time.items()}
+            at_gpt2_124m_fp32=general_time_gpt2[name],
+            at={s: t[name] for s, t in general_time_at.items() if name in t}))
+    kernels[-1]["backward_pair_at_gpt2_124m_fp32"] = (
+        general_time_gpt2["backward_pair"])
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
@@ -1458,6 +1462,7 @@ def general_timings(torch, A, gen, shape, dtype=None, names=None):
             None, 6 * d * pairs, 5 * elem + 2 * stat),
     }
     out = {}
+    tag = f"{list(shape)} {str(dtype).split('.')[-1]} causal"
     for name in names or rows:
         fn, plain, lib, flops, nbytes = rows[name]
         ms = time_ms(torch, fn)
@@ -1466,12 +1471,31 @@ def general_timings(torch, A, gen, shape, dtype=None, names=None):
         b_ms, b_by = bound(flops, nbytes, peak)
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by)
-        print(f"time {name} {list(shape)} {str(dtype).split('.')[-1]} "
-              f"causal: {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
-              f"{b_ms:.4f} ms by {b_by} at {peak / 1e12:.0f} TFLOP/s "
+        print(f"time {name} {tag}: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
+              f"bound {b_ms:.4f} ms by {b_by} at {peak / 1e12:.0f} TFLOP/s "
               f"({100 * b_ms / ms:.1f}% of bound, {flops / ms / 1e9:.2f} "
               f"TFLOP/s); library "
               f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    if "flash_bwd_dkdv_general" in out and "flash_bwd_dq_general" in out:
+        # The pair beside SDPA's backward (dq, dk, dv) in the same dtype
+        # and the backward's bound (5 products), as phase 4 for K2+K3.
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        ref = F.scaled_dot_product_attention(*xs, is_causal=True)
+        sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            ref, xs, do, retain_graph=True))
+        pair_ms = (out["flash_bwd_dkdv_general"]["ms"]
+                   + out["flash_bwd_dq_general"]["ms"])
+        pair_bound, pair_by = bound(10 * d * pairs, 7 * elem + 2 * stat,
+                                    peak)
+        out["backward_pair"] = dict(ms=pair_ms, bound_ms=pair_bound,
+                                    bound_by=pair_by,
+                                    sdpa_backward_ms=sdpa_bwd)
+        print(f"time K5+K6 {tag}: {pair_ms:.4f} ms; bound of the backward "
+              f"(5 products) {pair_bound:.4f} ms by {pair_by} "
+              f"({100 * pair_bound / pair_ms:.1f}% of bound); SDPA backward "
+              f"(dq, dk, dv) {sdpa_bwd:.4f} ms; K5+K6 / SDPA backward "
+              f"{pair_ms / sdpa_bwd:.3f}")
+        del xs, ref
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
     return out

@@ -43,9 +43,10 @@
 //     quarter as often.
 //   - What is left: per head-dim column (or key) a thread reads TM + TN
 //     words for TM TN FMAs, 12 for 32 at 4 x 8, so the SM's 32 words a
-//     cycle of shared memory cap both products at 2/3 of the FMA rate. 8 x 8 micro-tiles would lift that, but with
-//     this layout they take 255 registers, spill, and measured twice as
-//     slow (k4_variants.py).
+//     cycle of shared memory cap both products at 2/3 of the FMA rate.
+//     8 x 8 micro-tiles would lift that, but with this layout they take
+//     255 registers, spill, and measured twice as slow
+//     (general_variants.py).
 // Copies run by cp.async (16 bytes where the rows and pointers allow, 4
 // otherwise, plain loads for 16-bit inputs at odd head dims) into one
 // buffer each for K and V, staggered: V's tile t lands while S is
@@ -67,17 +68,7 @@ namespace rtt {
 namespace general {
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-template <int DL>
-struct FwdTile {
-  static constexpr int TM = DL == 8 ? 2 : 4;  // query rows a thread
-  static constexpr int TN = DL >= 4 ? 4 : 8;  // keys a thread, a tile
-  static constexpr int BM = 16 * TM;          // 4 warps x 4 row groups
-  static constexpr int BN = 8 * TN;           // 8 column groups
-  static constexpr int LDP = BM + 4;          // P's row stride (floats)
-};
 
 template <typename T, int DL>
 size_t fwd_smem(int D) {
@@ -117,13 +108,7 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = warp * 4 * TM + rg;
   const int prow = warp * 4 * TM + rg * TM;
 
-  // Columns D to D4 of every tile row are read as zeros; no copy writes
-  // them.
-  if (D4 > D) {
-    const int pad = D4 - D;
-    for (int i = threadIdx.x; i < (BM + 2 * BN) * pad; i += kThreads)
-      Qs[(i / pad) * ld + D + i % pad] = from_f<T>(0.f);
-  }
+  zero_pad(Qs, ld, BM + 2 * BN, D);
   const CopyPlan plan = copy_plan<T>(D, copy_bytes);
   copy_rows(Qs, ld, q, r0, BM, Sq, D, plan);
   copy_rows(Ks, ld, k, 0, BN, Sk, D, plan);
@@ -151,28 +136,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // S = Q K^T, 4 head-dim columns a step.
     float s[TM][TN];
-#pragma unroll
-    for (int a = 0; a < TM; ++a)
-#pragma unroll
-      for (int b = 0; b < TN; ++b) s[a][b] = 0.f;
-#pragma unroll
-    for (int d = 0; d < 32 * DL; d += 4) {
-      if (d >= D4) break;
-      float qf[TM][4], kf[TN][4];
-#pragma unroll
-      for (int a = 0; a < TM; ++a)
-        load_vec<4>(qf[a], Qs + (row0 + 4 * a) * ld + d);
-#pragma unroll
-      for (int b = 0; b < TN; ++b)
-        load_vec<4>(kf[b], Ks + (cg + 8 * b) * ld + d);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int a = 0; a < TM; ++a)
-#pragma unroll
-          for (int b = 0; b < TN; ++b)
-            s[a][b] = fmaf(qf[a][c], kf[b][c], s[a][b]);
-    }
+    row_products<DL>(s, Qs + row0 * ld, Ks + cg * ld, ld, D4);
 
     // Scores in log2 units; the causal diagonal and the Sk edge masked.
     const bool edge = (causal && j0 + BN - 1 > r0) || j0 + BN > Sk;
@@ -229,24 +193,8 @@ __global__ void __launch_bounds__(kThreads)
 
     // O += P V over the tile's keys. Past kend P is 0, and past Sk V's
     // rows are zeros too.
-#pragma unroll
-    for (int j = 0; j < BN; ++j) {
-      float pf[TM];
-      load_vec<TM>(pf, Ps + j * F::LDP + prow);
-#pragma unroll
-      for (int e = 0; e < DL; ++e) {
-        const int col = 32 * e + 4 * cg;
-        if (col < D4) {
-          float vf[4];
-          load_vec<4>(vf, Vs + j * ld + col);
-#pragma unroll
-          for (int a = 0; a < TM; ++a)
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              acc[a][e][c] = fmaf(pf[a], vf[c], acc[a][e][c]);
-        }
-      }
-    }
+    acc_products<BN, DL>(acc, Ps + prow, F::LDP, Vs + 4 * cg, ld,
+                         D4 - 4 * cg);
   }
 
 #pragma unroll
@@ -267,16 +215,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The copy size (16 or 4 bytes) that every row of q, k and v is made of
-// and that their addresses are aligned to; 0 for none (16-bit inputs at an
-// odd head_dim, or misaligned views).
-int copy_size(const void* q, const void* k, const void* v, size_t row) {
-  const size_t addr = reinterpret_cast<size_t>(q) |
-                      reinterpret_cast<size_t>(k) |
-                      reinterpret_cast<size_t>(v) | row;
-  return addr % 16 == 0 ? 16 : addr % 4 == 0 ? 4 : 0;
-}
-
 template <typename T, int DL>
 int run(const void* q, const void* k, const void* v, void* o, float* lse,
         int BH, int Sq, int Sk, int D, int causal, float scale,
@@ -287,7 +225,7 @@ int run(const void* q, const void* k, const void* v, void* o, float* lse,
                      static_cast<const T*>(q), static_cast<const T*>(k),
                      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq,
                      Sk, D, causal, scale * kLog2e,
-                     copy_size(q, k, v, sizeof(T) * D));
+                     copy_size(sizeof(T) * D, q, k, v));
 }
 
 }  // namespace

@@ -1,25 +1,32 @@
 // Shared by the general flash kernels K4-K6 (flash_fwd_general.cu,
-// flash_bwd_dkdv_general.cu, flash_bwd_dq_general.cu).
+// flash_bwd_dq_general.cu, flash_bwd_dkdv_general.cu).
 //
 // They take what K1-K3 do not: fp32 as well as bf16 and fp16, and any
 // head_dim from 1 to 256, as the Pallas kernels they replace compute every
-// dtype and head_dim in their own body. They are plain CUDA cores (SIMT):
-// every product and sum is fp32.
+// dtype and head_dim in their own body. They run on the CUDA cores and
+// every product and sum is fp32: the card holds them to 1e-5 of the plain
+// versions in fp32, which TF32 cannot meet.
 //
-// K5 and K6 share one shape: a block of four warps owns kRows rows of one
-// (b, h) (four a warp, kept in registers) and streams the other operand
-// through shared memory in tiles of kTile = 32 rows, one row a lane. A
-// lane computes the score (and dP) of its tile row as a dot product over
-// D; a warp then broadcasts each lane's P or dS with a shuffle and every
-// lane adds it into the columns it owns (d = lane + 32 t, t < DL, with
-// DL >= ceil(D / 32) registers a row). The streamed tiles are padded to
-// D + 1 floats a row, so the 32 lanes' dot products read 32 banks.
-//
-// K4 is register-blocked (see flash_fwd_general.cu); its pieces here are
-// the asynchronous tile copies (cp_async, copy_plan, copy_rows), vector
-// loads from shared memory widened to fp32 (load_vec, store_vec), the row
-// stride that keeps those loads free of bank conflicts (smem_ld) and the
-// reductions over a row's few threads (group_max, group_sum).
+// The three share one shape. A block of four warps owns BM rows of one
+// (b, h) and streams the other operand through shared memory in tiles of
+// BN rows (Tile): a thread holds a TM x TN micro-tile of each score tile
+// (S, dP, or their transposes) and a TM x 4 DL micro-tile of each output
+// (columns 32 e + 4 cg + c), all in registers, so every product is an
+// outer product over shared memory:
+//   - a score tile takes 4 head-dim columns a step (row_products): one
+//     16-byte load (8 for 16-bit, widened to fp32) per row of either
+//     operand feeds 4 TM TN FMAs; both operands stay row-major, the layout
+//     cp.async fills, and smem_ld pads rows so that the 8 rows a load
+//     instruction touches hit 8 bank groups;
+//   - an output tile reads its scores back from a per-warp slice of shared
+//     memory, the thread's TM rows adjacent, one vector per streamed row
+//     beside DL 16-byte loads of the operand (acc_products).
+// Tiles are copied by cp.async (copy_plan, copy_rows: 16 bytes where the
+// rows and every streamed pointer allow, copy_size; 4 otherwise; element
+// by element for 16-bit inputs at odd head dims), staggered against the
+// products so that a copy lands while another operand is read. Columns D
+// to D rounded up to 4 are zeros (zero_pad). DL = ceil(D / 32) rounded to a
+// power of two picks the instantiation (RTT_GENERAL_DISPATCH).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,12 +42,10 @@ namespace general {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRows = kWarps * kRowsPerWarp;  // owned rows a block
-constexpr int kTile = 32;                     // streamed rows a tile
 constexpr int kMaxDL = 8;                     // head_dim <= 256
 constexpr float kMasked = -1e30f;             // the reference's causal mask
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -68,36 +73,6 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// Rows [r0, r0 + n) of a row-major [*, D] matrix into fp32 shared memory,
-// ``ld`` floats a row; rows at or past ``limit`` read as 0.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
-                                          int r0, int n, int limit, int D) {
-  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
-    const int r = i / D, c = i - r * D;
-    dst[r * ld + c] =
-        r0 + r < limit ? to_f(src[static_cast<size_t>(r0 + r) * D + c]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ float dot(const float* a, const float* b, int D) {
-  float s = 0.f;
-  for (int d = 0; d < D; ++d) s = fmaf(a[d], b[d], s);
-  return s;
-}
-
 // Launches ``kernel`` on ``grid`` blocks of kThreads with ``smem`` bytes of
 // dynamic shared memory; returns the launch's error.
 template <typename Kernel, typename... Args>
@@ -113,21 +88,11 @@ int launch_grid(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches ``kernel`` on grid (B * H, ceil(rows / kRows)).
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int BH, int rows, size_t smem, cudaStream_t stream,
-           Args... args) {
-  return launch_grid(kernel, dim3(BH, (rows + kRows - 1) / kRows), smem,
-                     stream, args...);
-}
-
-// -- K4's pieces --------------------------------------------------------------
-
 // ``Bytes`` from global to shared memory without a register stage
 // (cp.async; 16-byte copies bypass L1), or zeros where !valid. They land
 // by cp_async_wait_all. Without the device compiler (a host build of
 // these sources, as the CPU harness of the tests makes) the copy is done
-// at once and the wait is a no-op.
+// at once, a misaligned one as NaNs, and the wait is a no-op.
 template <int Bytes>
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          bool valid) {
@@ -144,10 +109,14 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
                  "l"(src), "n"(Bytes), "r"(n)
                  : "memory");
 #else
-  if (valid)
+  // The card faults on a misaligned copy, or reads wrong bytes; here it
+  // reads as NaNs.
+  const bool aligned = (reinterpret_cast<size_t>(dst) |
+                        reinterpret_cast<size_t>(src)) % Bytes == 0;
+  if (valid && aligned)
     memcpy(dst, src, Bytes);
   else
-    memset(dst, 0, Bytes);
+    memset(dst, valid ? 0xff : 0, Bytes);
 #endif
 }
 
@@ -271,6 +240,118 @@ __device__ __forceinline__ float group_sum(float x) {
 #pragma unroll
   for (int o = G / 2; o; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
+}
+
+// A block's tiling. Lane l of warp w is in row group rg = l / 8 and
+// column group cg = l % 8; its TM rows are w 4 TM + rg + 4 a (a < TM), its
+// TN columns of a tile cg + 8 b (b < TN), and its rows sit side by side in
+// a score slice from w 4 TM + rg TM. LDP is that slice's row stride.
+template <int TM_, int TN_>
+struct Tile {
+  static constexpr int TM = TM_;       // owned rows a thread
+  static constexpr int TN = TN_;       // streamed rows a thread, a tile
+  static constexpr int BM = 16 * TM;   // 4 warps x 4 row groups
+  static constexpr int BN = 8 * TN;    // 8 column groups
+  static constexpr int LDP = BM + 4;   // floats
+};
+
+// K4's: query rows by keys, fewer of each where DL's columns of O take the
+// registers. K6 takes its rows (flash_bwd_dq_general.cu).
+template <int DL>
+using FwdTile = Tile<DL == 8 ? 2 : 4, DL >= 4 ? 4 : 8>;
+
+// The copy size (16 or 4 bytes) that every row (``row`` bytes) of the
+// streamed tensors is made of and that all their addresses are aligned
+// to; 0 for none (16-bit inputs at an odd head_dim, or misaligned views).
+template <typename... P>
+int copy_size(size_t row, const P*... ptrs) {
+  const size_t addr = (row | ... | reinterpret_cast<size_t>(ptrs));
+  return addr % 16 == 0 ? 16 : addr % 4 == 0 ? 4 : 0;
+}
+
+// Columns D up to D rounded to 4 of ``rows`` tile rows from ``tile``, ``ld``
+// apart: zeros, read by the 4-column steps; no copy writes them.
+template <typename T>
+__device__ __forceinline__ void zero_pad(T* tile, int ld, int rows, int D) {
+  const int pad = ((D + 3) & ~3) - D;
+  if (pad == 0) return;
+  for (int i = threadIdx.x; i < rows * pad; i += kThreads)
+    tile[(i / pad) * ld + D + i % pad] = from_f<T>(0.f);
+}
+
+// s[a][b] = sum over d < D4 of A[4 a][d] B[8 b][d] (rows ``ld`` apart in
+// shared memory): a thread's TM x TN scores, 4 head-dim columns a step.
+template <int DL, int TM, int TN, typename T>
+__device__ __forceinline__ void row_products(float (&s)[TM][TN], const T* A,
+                                             const T* B, int ld, int D4) {
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int b = 0; b < TN; ++b) s[a][b] = 0.f;
+#pragma unroll
+  for (int d = 0; d < 32 * DL; d += 4) {
+    if (d >= D4) break;
+    float af[TM][4], bf[TN][4];
+#pragma unroll
+    for (int a = 0; a < TM; ++a) load_vec<4>(af[a], A + 4 * a * ld + d);
+#pragma unroll
+    for (int b = 0; b < TN; ++b) load_vec<4>(bf[b], B + 8 * b * ld + d);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int b = 0; b < TN; ++b)
+          s[a][b] = fmaf(af[a][c], bf[b][c], s[a][b]);
+  }
+}
+
+// acc[a][e][c] += sum over j < N of P[j][a] X[j][32 e + c]: P's rows ``ldp``
+// floats apart (the thread's TM scores adjacent), X's ``ld`` elements apart
+// and already offset to the thread's columns (4 cg), of which the first
+// ``cols`` are read.
+template <int N, int DL, int TM, typename T>
+__device__ __forceinline__ void acc_products(float (&acc)[TM][DL][4],
+                                             const float* P, int ldp,
+                                             const T* X, int ld, int cols) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    float pf[TM];
+    load_vec<TM>(pf, P + j * ldp);
+#pragma unroll
+    for (int e = 0; e < DL; ++e) {
+      if (32 * e < cols) {
+        float xf[4];
+        load_vec<4>(xf, X + j * ld + 32 * e);
+#pragma unroll
+        for (int a = 0; a < TM; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[a][e][c] = fmaf(pf[a], xf[c], acc[a][e][c]);
+      }
+    }
+  }
+}
+
+// A thread's TM x 4 DL output tile (its rows 4 apart) as T into a
+// row-major [*, D] matrix: ``out`` points at its first row, column col0 (4
+// cg); rows from ``rows`` on and columns from D on are left out.
+template <int DL, int TM, typename T>
+__device__ __forceinline__ void store_rows(T* out,
+                                           const float (&acc)[TM][DL][4],
+                                           int rows, int D, int col0) {
+#pragma unroll
+  for (int a = 0; a < TM; ++a) {
+    if (4 * a >= rows) break;
+#pragma unroll
+    for (int e = 0; e < DL; ++e)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 32 * e + col0 + c;
+        if (col < D) out[static_cast<size_t>(4 * a) * D + 32 * e + c] =
+            from_f<T>(acc[a][e][c]);
+      }
+  }
 }
 
 }  // namespace general

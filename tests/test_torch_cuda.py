@@ -408,25 +408,41 @@ def test_cuda_fp32_llama_runs_the_general_kernels(cuda):
         assert err <= 1e-4 * b.grad.abs().max() + 1e-9
 
 
+def _misaligned(x: torch.Tensor, elems: int) -> torch.Tensor:
+    """``x`` copied to an address ``elems`` elements past an allocation's
+    start: a contiguous view aligned to less than 16 bytes."""
+    if not elems:
+        return x
+    buf = torch.empty(x.numel() + elems, dtype=x.dtype, device=x.device)
+    out = buf[elems:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,sk,d,causal,dtype", [
-    (64, 64, 16, True, torch.float32),       # llama-tiny's head
-    (200, 130, 64, True, torch.float32),     # causal Sq > Sk, fp32 at D 64
-    (130, 200, 128, False, torch.float32),   # fp32 at D 128
-    (100, 100, 32, False, torch.bfloat16),
-    (70, 150, 80, True, torch.float16),      # causal Sq < Sk, D not /32
-    (48, 48, 256, True, torch.float32),      # the largest head_dim
-    (33, 33, 1, True, torch.float32),
-    (8192, 8192, 64, True, torch.float32),   # bench_ring_parity's rows
-    (1024, 1024, 80, True, torch.float16),   # K4's fp16 timing shape
+@pytest.mark.parametrize("sq,sk,d,causal,dtype,offset", [
+    (64, 64, 16, True, torch.float32, 0),       # llama-tiny's head
+    (200, 130, 64, True, torch.float32, 0),     # causal Sq > Sk, fp32 D 64
+    (130, 200, 128, False, torch.float32, 0),   # fp32 at D 128
+    (100, 100, 32, False, torch.bfloat16, 0),
+    (70, 150, 80, True, torch.float16, 0),      # causal Sq < Sk, D not /32
+    (48, 48, 256, True, torch.float32, 0),      # the largest head_dim
+    (33, 33, 1, True, torch.float32, 0),
+    (8192, 8192, 64, True, torch.float32, 0),   # bench_ring_parity's rows
+    (1024, 1024, 80, True, torch.float16, 0),   # K4's fp16 timing shape
+    (200, 130, 64, True, torch.float32, 1),     # misaligned: 4-byte copies
+    (100, 150, 48, True, torch.bfloat16, 1),    # misaligned: element copies
 ])
-def test_cuda_general_kernels_match_plain(cuda, sq, sk, d, causal, dtype):
+def test_cuda_general_kernels_match_plain(cuda, sq, sk, d, causal, dtype,
+                                          offset):
     """K4-K6 against the plain versions on the same inputs: fp32 within
     1e-5 of the largest entry (fp32 sums in another order), 16-bit within
-    2e-2 (bf16 keeps 8 bits); the Hopper kernels are not launched."""
+    2e-2 (bf16 keeps 8 bits); the Hopper kernels are not launched. With
+    ``offset``, q, k, v and dO are views that many elements off 16-byte
+    alignment, which the general kernels take."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    mk = lambda s: torch.randn((2, 3, s, d), generator=g, device=cuda,
-                               dtype=dtype)
+    mk = lambda s: _misaligned(torch.randn((2, 3, s, d), generator=g,
+                                           device=cuda, dtype=dtype), offset)
     q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
     scale = d ** -0.5
     tattn.reset_launch_counts()
