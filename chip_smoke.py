@@ -23,7 +23,8 @@ Phases; any failure exits non-zero:
      (gpt2-774m), [4,25,1024,64] (gpt2-1.5b), [4,16,4096,64],
      [2,16,8192,64] and [1,16,16384,64] causal (bench_long_context's
      points, where the reference runs _flash_fwd_kernel), [1,2,4096,64]
-     non-causal, and [64,12,197,64] non-causal (ViT-B/16; ~15-30 s). K4-K6:
+     non-causal, [64,12,197,64] non-causal (ViT-B/16) and [1,2,4096,64]
+     causal (a Ulysses rank's in phase 5j; ~15-30 s). K4-K6:
      llama-tiny's [2,4,64,16] fp32 causal, fp32 at D 64, 128 and 256 and
      at D 1, bf16 at D 32, fp16 at D 80, [8,12,1024,64] fp32,
      [1,2,8192,64] fp32 (bench_ring_parity's shape) and [4,16,1024,80]
@@ -82,7 +83,9 @@ Phases; any failure exits non-zero:
      metric finite and timesteps_this_iter 32768; then CartPole
      (cartpole(64), rollout 128, 8 minibatches, 4 epochs, seed 0) must reach
      mean_episode_len >= 128 within 120 iterations;
-  8. prints the kernels as one JSON line, the card again, and last
+  8. prints the kernels as one JSON line (each entry also with its
+     launches a step on phases 5h and 5i and a rank on phase 5j's
+     ring-flash and Ulysses), the card again, and last
      {"ok": true, "device": {...}}.
 
 Between phases 5 and 6 it also trains gpt2-774m at bench.py's configuration
@@ -116,6 +119,32 @@ to 1e-3 and whose peak memory must be larger (~15-40 s). Then:
     K6 once, with the counts set to 0 just before, and no Hopper kernel
     (~1 s).
 
+  - the parallel layer (``ray_tpu_torch/parallel``). 5h: a world of one on
+    NCCL (an in-process KV, ``Bootstrap(world_size=1)``,
+    ``initialize_torch("nccl")``, ``MeshSpec(dp=1).build()``) trains
+    gpt2-124m through ``build_sharded_train`` with phase 5b's weights,
+    tokens and recipe, 2 + 5 steps: its 7 losses within 1e-3 of
+    ``build_train``'s (bit-equality printed), K1-K3 12 a step, step ms
+    beside ``build_train``'s. 5i: MoE GPT-2 at gpt2-124m's widths (8
+    experts, top-2, capacity 1.25, aux weight 0.01; 520,865,280
+    parameters) on the same mesh, the same recipe, 2 + 5 steps: finite
+    losses, the first within 1 of ln 50304 plus the aux weight, K1-K3 12
+    a step, step ms, tokens/s, MFU on the active parameters and peak
+    memory; then layer 0's MoE FFN on the card against the CPU on 8,192
+    tokens (fp32): every token's experts equal, output and aux within
+    1e-4. 5j: four spawned ranks on the one card (gloo; each on cuda:0):
+    ring-flash at [1,2,8192,64] fp32, causal (K4 r + 1 times on rank r)
+    and not (4 times), and the einsum ring forward and backward, within
+    1e-4 of the plain attention (fp32 autograd for the gradients; no
+    attention kernel in the einsum ring); Ulysses at [1,8,4096,64] bf16
+    causal, forward and backward (K1-K3 once a rank, no general kernel)
+    against fp32 autograd of the plain attention on the whole tensor
+    within phase 3's autograd tolerance, 2e-2 (phase 3b holds K1-K3 to
+    their plain versions at the per-rank [1,2,4096,64] causal); one MoE
+    layer at gpt2-124m's widths over ep = 4
+    against ep = 1 on each rank's own 1,024 tokens (capacity factor 8: none
+    dropped) within 1e-5 (~30 s for the three).
+
 The llama-1b serving phase and every training phase above require that
 no general kernel was launched: every bench path runs K1-K3.
 
@@ -129,7 +158,9 @@ gpt2-1.5b, of gpt2-355m at seq 16384 and of ViT-B/16
 ..._vit.txt), and of one replayed and one eager PPO iteration to
 chiprun_out/chip_smoke_profile_ppo_<how>.txt; it also counts the kernels
 and device time of one Adafactor update (with its p + u) at gpt2-1.5b and
-at gpt2-355m seq 16384.
+at gpt2-355m seq 16384, and splits one MoE GPT-2 step's device time into
+its one-hot einsums, expert products, attention and the rest
+(chiprun_out/chip_smoke_profile_moe.txt).
 """
 
 import copy
@@ -381,6 +412,8 @@ def main(argv):
         (1, 2, 4096, 4096, 64, False, bf)], gen)
     vit_errs = check_kernels(torch, A, [(64, 12, 197, 197, 64, False, bf)],
                              gen)
+    # Ulysses' shape on each of phase 5j's ranks: [1, 8/4 heads, 4096, 64].
+    check_kernels(torch, A, [(1, 2, 4096, 4096, 64, True, bf)], gen)
     print(f"phase 3b (the training paths' shapes): "
           f"{time.perf_counter() - t0:.3f} s wall")
 
@@ -514,12 +547,7 @@ def main(argv):
 
     # -- 5b. the main path: gpt2-124m training --------------------------------
     t_phase = time.perf_counter()
-    base = gpt2.CONFIGS["gpt2-124m"]
-    cfg = gpt2.GPT2Config(vocab_size=base.vocab_size, max_seq=1024,
-                          num_layers=base.num_layers,
-                          num_heads=base.num_heads, d_model=base.d_model,
-                          dtype=torch.bfloat16, attention_impl="flash",
-                          remat_policy="none")
+    cfg = gpt2_124m_config(gpt2, torch)
     batch, seq, warm, steps = 8, 1024, 2, 5
     sched = warmup_cosine_decay_schedule(0.0, 1e-4, 100, 1000,
                                          end_value=1e-5)
@@ -562,6 +590,8 @@ def main(argv):
     print(f"gpt2-124m train: step {step_ms:.3f} ms, {tok_s:.1f} tokens/s, "
           f"MFU {100 * mfu:.3f}% of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, "
           f"peak memory {peak_gb:.3f} GB")
+    ref_124m = dict(losses=losses, step_ms=step_ms, batch=batch, seq=seq,
+                    data=data)
 
     if "--profile" in argv:
         profile_step(torch, step_fn, model, opt_state, step, data, root)
@@ -590,6 +620,27 @@ def main(argv):
 
     # -- 5g. fault C3: an fp32, head_dim-16 model on the card ------------------
     c3_launches = c3_phase(torch, A, dev)
+
+    # -- 5h-5j. the parallel layer: a mesh of one (gpt2-124m, MoE GPT-2),
+    # then four ranks on the card ---------------------------------------------
+    par = mesh_phases(torch, A, sched, ref_124m["data"], ref_124m,
+                      profile_root=prof)
+    del ref_124m["data"]
+    sp4 = sp4_phase(torch)
+    moe = par["moe"]
+    print(f"parallel layer on {card}: gpt2-124m through build_sharded_train "
+          f"(mesh of one) step {par['sharded']['step_ms']:.3f} ms against "
+          f"build_train's {ref_124m['step_ms']:.3f} ms; moe gpt2 step "
+          f"{moe['step_ms']:.3f} ms, {moe['tokens_s']:.1f} tokens/s, MFU "
+          f"{moe['mfu_pct']:.3f}% (active parameters), peak memory "
+          f"{moe['peak_gb']:.3f} GB; four ranks: ring-flash worst "
+          f"{max(r['ring_flash_causal']['max_abs_err'] for r in sp4):.3e}"
+          f", einsum ring worst "
+          f"{max(r['ring_einsum']['max_abs_err'] for r in sp4):.3e}, "
+          f"Ulysses worst "
+          f"{max(r['ulysses']['max_abs_err'] for r in sp4):.3e}"
+          f", MoE ep=4 worst "
+          f"{max(r['moe_ep']['max_abs_err'] for r in sp4):.3e}")
 
     # -- 6. llama-1b serving ----------------------------------------------------
     llama_k1 = serve_phase(torch, A, dev,
@@ -657,6 +708,19 @@ def main(argv):
             at={s: t[name] for s, t in general_time_at.items() if name in t}))
     kernels[-1]["backward_pair_at_gpt2_124m_fp32"] = (
         general_time_gpt2["backward_pair"])
+    # The parallel layer's paths: per step on the mesh of one, per rank at
+    # sp = 4 (ring-flash causal; Ulysses forward and backward).
+    for k in kernels:
+        name = k["name"]
+        k["launches_sharded_gpt2_124m"] = par["sharded"][
+            "launches_per_step"].get(name, 0)
+        k["launches_moe_gpt2_per_step"] = par["moe"][
+            "launches_per_step"].get(name, 0)
+        k["launches_ring_sp4"] = [
+            r["ring_flash_causal"]["launches"]
+            if name == "flash_fwd_general" else 0 for r in sp4]
+        k["launches_ulysses_sp4"] = [r["ulysses"]["launches"].get(name, 0)
+                                     for r in sp4]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
@@ -1844,6 +1908,442 @@ def resnet_phase(torch):
     return dict(step_ms=elapsed / steps * 1e3,
                 images_s=batch * steps / elapsed, peak_gb=peak,
                 first_loss=losses[0])
+
+
+
+
+# -- the parallel layer: a mesh of one, MoE GPT-2, four ranks on the card ----
+
+# Four ranks on the one card: ring-flash and the einsum ring at
+# bench_ring_parity's shape (fp32), Ulysses (bf16), and one MoE layer at
+# gpt2-124m's widths over ep = 4 (each rank's tokens, capacity factor 8 so
+# that none is dropped).
+RING_SHAPE = (1, 2, 8192, 64)
+ULYSSES_SHAPE = (1, 8, 4096, 64)
+MOE_EP_TOKENS, MOE_EP_CAPACITY = 1024, 8.0
+TOL_RING = 1e-4   # ring bodies at sp = 4 against the plain attention (fp32)
+TOL_EP = 1e-5     # MoE at ep = 4 against ep = 1 on the same tokens (fp32)
+TOL_MOE_CARD = 1e-4  # one MoE layer, the card against the CPU (fp32)
+SP4_TIMEOUT_S = 600
+
+
+def gpt2_124m_config(gpt2, torch, **kw):
+    """gpt2-124m's widths at seq 1024, bf16, the flash kernels, no remat."""
+    base = gpt2.CONFIGS["gpt2-124m"]
+    return gpt2.GPT2Config(vocab_size=base.vocab_size, max_seq=1024,
+                           num_layers=base.num_layers,
+                           num_heads=base.num_heads, d_model=base.d_model,
+                           dtype=torch.bfloat16, attention_impl="flash",
+                           remat_policy="none", **kw)
+
+
+def mesh_phases(torch, A, sched, data, ref, card="cuda", profile_root=None):
+    """Phases 5h and 5i on a world of one: an in-process KV and
+    ``Bootstrap(world_size=1)``, ``initialize_torch("nccl")`` and
+    ``MeshSpec(dp=1).build()``. 5h trains gpt2-124m through
+    ``build_sharded_train`` (the 5b phase's weights, tokens and recipe) and
+    holds its 7 losses to ``ref["losses"]`` (``build_train``'s); 5i trains
+    MoE GPT-2 at gpt2-124m's widths (8 experts, top-2, capacity 1.25)
+    through it and holds one MoE layer on the card to the CPU. Returns
+    both phases' records."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel.bootstrap import Bootstrap, InMemoryKV
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.sharding import prune_rules_for_mesh
+    from ray_tpu_torch.train.optim import adamw_lowmem
+    from ray_tpu_torch.train.step import build_sharded_train
+
+    bs = Bootstrap(InMemoryKV(), world_size=1, session="chip_smoke")
+    bs.claim_rank()
+    bs.coordinator_address()
+    bs.initialize_torch("nccl")
+    try:
+        mesh = MeshSpec(dp=1).build()
+        rules = prune_rules_for_mesh(mesh)
+        print(f"mesh of one: {dist.get_backend()} world "
+              f"{dist.get_world_size()}, DeviceMesh {mesh.mesh_dim_names} "
+              f"shape {tuple(mesh.mesh.shape)} on {mesh.device_type}")
+        out = {}
+        for name, cfg in (("sharded", gpt2_124m_config(gpt2, torch)),
+                          ("moe", gpt2_124m_config(
+                              gpt2, torch, num_experts=8, moe_top_k=2,
+                              moe_capacity_factor=1.25,
+                              moe_aux_weight=0.01))):
+            t_phase = time.perf_counter()
+            init, step_fn, _ = build_sharded_train(
+                lambda g, cfg=cfg: gpt2.GPT2(cfg, g),
+                lambda m, b: m.loss_fn(b, rules), mesh,
+                optimizer=adamw_lowmem(sched), master_fp32=True)
+            state = init(0)
+            n_params = sum(p.numel() for p in state[0].parameters())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launch_counts()
+            state, losses, norms, elapsed = run_steps(
+                torch, step_fn, state, data, 2, 5)
+            launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
+            general = general_launches(A)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            rec = mesh_record(torch, gpt2, cfg, name, losses, norms, elapsed,
+                              launches, general, peak_gb, n_params, ref)
+            if name == "moe":
+                if profile_root:
+                    rec["profile"] = profile_moe_step(
+                        torch, step_fn, state, data, profile_root, cfg)
+                rec["layer_check"] = moe_layer_check(torch, cfg, state[0],
+                                                     card)
+            del state
+            torch.cuda.empty_cache()
+            print(f"phase 5{'h' if name == 'sharded' else 'i'} ({name}): "
+                  f"{time.perf_counter() - t_phase:.3f} s wall")
+            out[name] = rec
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def mesh_record(torch, gpt2, cfg, name, losses, norms, elapsed, launches,
+                general, peak_gb, n_params, ref):
+    """Gates and numbers of one mesh-of-one training run."""
+    batch, seq = ref["batch"], ref["seq"]
+    n = len(losses)
+    step_ms = elapsed / (n - 2) * 1e3
+    tok_s = batch * seq * (n - 2) / elapsed
+    print(f"{name}: {n_params} parameters; losses {losses}")
+    print(f"{name}: grad norms {norms}")
+    require(all(math.isfinite(x) for x in losses + norms),
+            f"{name}: finite losses")
+    expect = n * cfg.num_layers
+    print(f"{name}: launches over {n} steps {launches} (expect {expect} "
+          f"each); general kernels {general}")
+    require(all(v == expect for v in launches.values()),
+            f"{name}: launch counts")
+    require(general == 0, f"{name}: no general kernel")
+    rec = dict(step_ms=step_ms, tokens_s=tok_s, peak_gb=peak_gb,
+               losses=losses, launches_per_step={
+                   k: v // n for k, v in launches.items()})
+    if name == "sharded":
+        diffs = [abs(a - b) for a, b in zip(losses, ref["losses"])]
+        bit_equal = losses == ref["losses"]
+        print(f"sharded gpt2-124m (build_sharded_train, mesh of one): step "
+              f"{step_ms:.3f} ms, {tok_s:.1f} tokens/s (build_train: "
+              f"{ref['step_ms']:.3f} ms); losses against build_train's: "
+              f"largest |difference| {max(diffs):.3e} (tol "
+              f"{TOL_REMAT_LOSS}), bit-equal {bit_equal}")
+        require(max(diffs) < TOL_REMAT_LOSS,
+                "sharded gpt2-124m losses equal build_train's")
+        rec.update(max_loss_diff=max(diffs), bit_equal=bit_equal)
+        return rec
+    # MoE: the first loss near ln(vocab) plus the router term at balance
+    # (aux of a layer ~1: experts x sum(1/E x 1/E)).
+    first = math.log(cfg.vocab_size) + cfg.moe_aux_weight
+    require(abs(losses[0] - first) < 1.0,
+            f"moe: first loss {losses[0]} near ln(vocab) + aux weight = "
+            f"{first:.3f}")
+    d, m, L = cfg.d_model, cfg.mlp_dim, cfg.num_layers
+    active = n_params - L * (cfg.num_experts - cfg.moe_top_k) * 2 * d * m
+    flops_tok = 6.0 * active + 12 * L * d * seq
+    mfu = tok_s * flops_tok / PEAK_BF16_FLOPS
+    print(f"moe gpt2 (gpt2-124m widths, {cfg.num_experts} experts, top-"
+          f"{cfg.moe_top_k}, capacity {cfg.moe_capacity_factor}): step "
+          f"{step_ms:.3f} ms, {tok_s:.1f} tokens/s, MFU {100 * mfu:.3f}% "
+          f"on the active parameters ({active} of {n_params}; 6 x active + "
+          f"12 L d S a token, the router and the one-hot dispatch/combine "
+          f"einsums not counted, against {PEAK_BF16_FLOPS / 1e12:.0f} "
+          f"TFLOP/s), peak memory {peak_gb:.3f} GB")
+    rec.update(mfu_pct=100 * mfu, active_params=active, params=n_params)
+    return rec
+
+
+def profile_moe_step(torch, step_fn, state, data, root, cfg):
+    """One MoE GPT-2 step under torch.profiler, its device time split into
+    the one-hot einsums (GEMMs with an operand of experts x capacity
+    columns: dispatch, combine, and the combine weights), the expert
+    products (batched GEMMs over [experts, capacity, ...]), attention (the
+    flash kernels) and the rest; written to
+    chiprun_out/chip_smoke_profile_moe.txt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step_fn(*state, data)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    tokens = data["tokens"].shape[0] * (data["tokens"].shape[1] - 1)
+    cap = -(-max(1, int(cfg.moe_capacity_factor * tokens * cfg.moe_top_k
+                        / cfg.num_experts)) // 8) * 8
+    ec = cfg.num_experts * cap
+    split = dict(one_hot=0.0, experts=0.0, attention=0.0, other=0.0)
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type == DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
+        dims = {d for shape in e.input_shapes for d in shape}
+        gemm = e.key in ("aten::mm", "aten::bmm", "aten::addmm")
+        if gemm and ec in dims:
+            split["one_hot"] += us
+        elif gemm and cap in dims and cfg.num_experts in dims:
+            split["experts"] += us
+        else:
+            split["other"] += us
+    kernels = sum(e.device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    flash = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "flash" in e.key)
+    # The flash kernels are launched through ctypes, outside any aten op:
+    # they land in "other" above.
+    split["attention"] = flash
+    split["other"] = max(0.0, kernels - split["one_hot"] - split["experts"]
+                         - flash)
+    out = os.path.join(root, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "chip_smoke_profile_moe.txt"), "w") as f:
+        f.write(prof.key_averages(group_by_input_shape=True).table(
+            sort_by="self_cuda_time_total", row_limit=40))
+    ms = {k: v / 1e3 for k, v in split.items()}
+    print(f"profile of one moe step: {kernels / 1e3:.3f} ms of device time "
+          f"in {wall_ms:.3f} ms (profiled); " + ", ".join(
+              f"{k} {v:.3f} ms ({100 * v * 1e3 / max(kernels, 1e-9):.1f}%)"
+              for k, v in ms.items())
+          + "; table in chiprun_out/chip_smoke_profile_moe.txt")
+    return dict(device_ms=kernels / 1e3, wall_ms=wall_ms, **ms)
+
+
+def moe_layer_check(torch, cfg, model, card="cuda"):
+    """Layer 0's MoE FFN (fp32, its weights as the model holds them) on
+    8 x 1024 tokens of a seeded input, on the card and on the CPU: the
+    same expert choices for every token, output and aux within
+    TOL_MOE_CARD."""
+    from ray_tpu_torch.device import full_fp32
+    from ray_tpu_torch.parallel.moe import moe_ffn_local, router_topk
+
+    blk = model.blocks[0]
+    ws = [getattr(blk, n).to_local().detach().float()
+          for n in ("router_w", "moe_in_w", "moe_out_w")]
+    x = torch.randn(8 * 1024, cfg.d_model,
+                    generator=torch.Generator().manual_seed(5))
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.moe_top_k,
+              capacity_factor=cfg.moe_capacity_factor, axis_name=None)
+    res = {}
+    with full_fp32():
+        for where, dev in (("card", card), ("cpu", "cpu")):
+            w = [t.to(dev) for t in ws]
+            xd = x.to(dev)
+            _, idx, probs = router_topk(xd @ w[0], cfg.moe_top_k)
+            out, aux = moe_ffn_local(xd, *w, **kw)
+            res[where] = (idx.cpu(), probs.cpu(), out.cpu(), aux.cpu())
+    (ic, pc, oc, ac), (ih, ph, oh, ah) = res["card"], res["cpu"]
+    flips = (ic != ih).any(-1)
+    e_out, e_aux = rel_err(oc, oh), abs(ac.item() - ah.item()) / abs(
+        ah.item())
+    print(f"moe layer 0, card vs CPU on {x.shape[0]} tokens: choices "
+          f"differ on {int(flips.sum())} tokens; output rel {e_out:.3e}, "
+          f"aux rel {e_aux:.3e} (tol {TOL_MOE_CARD})")
+    if flips.any():
+        top = ph[flips].sort(-1, descending=True).values
+        margins = (top[:, cfg.moe_top_k - 1] - top[:, cfg.moe_top_k])
+        print(f"moe layer 0: flipped tokens' CPU probability margins "
+              f"{margins.tolist()}")
+    require(not flips.any(), "moe layer 0 routes every token as the CPU")
+    require(e_out < TOL_MOE_CARD and e_aux < TOL_MOE_CARD,
+            "moe layer 0 output and aux on the card")
+    return dict(max_abs_err=e_out, aux_rel_err=e_aux,
+                tokens=int(x.shape[0]))
+
+
+SP4_SHAPES = dict(ring=RING_SHAPE, ulysses=ULYSSES_SHAPE,
+                  moe=(MOE_EP_TOKENS, 8, 768, 3072))
+
+
+def sp4_phase(torch, device="cuda", shapes=SP4_SHAPES):
+    """Phase 5j: four ranks on the one card (spawned; a gloo group, each
+    rank on cuda:0; NCCL refuses two ranks on one device). ``shapes``: the
+    ring and Ulysses [B, H, S, D] and the MoE layer's (tokens a rank,
+    experts, d, hidden). Returns each rank's record (``_sp4_body``)."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import tempfile
+
+    t_phase = time.perf_counter()
+    world = 4
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    store = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "store")
+    procs = [ctx.Process(target=_sp4_rank,
+                         args=(r, world, store, out, device, shapes))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    recs, error = {}, None
+    try:
+        while len(recs) < world and error is None:
+            rank, rec, err = out.get(timeout=SP4_TIMEOUT_S)
+            if err is not None:
+                error = f"rank {rank}: {err}"
+            recs[rank] = rec
+    except queue_mod.Empty:
+        error = f"ranks gave no result within {SP4_TIMEOUT_S} s"
+    finally:
+        for p in procs:
+            p.join(timeout=10 if error else 60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    require(error is None, f"four ranks on the card: {error}")
+    for r in range(world):
+        rec = recs[r]
+        print(f"sp4 rank {r}: " + "; ".join(
+            f"{k} {v}" for k, v in rec.items()))
+    ring = [recs[r]["ring_flash_causal"] for r in range(world)]
+    require(all(x["launches"] == r + 1 for r, x in enumerate(ring)),
+            "ring-flash causal: K4 r + 1 times on rank r")
+    require(all(recs[r]["ring_flash_full"]["launches"] == world
+                for r in range(world)), "ring-flash non-causal: K4 4 times")
+    for key in ("ring_flash_causal", "ring_flash_full", "ring_einsum"):
+        worst = max(recs[r][key]["max_abs_err"] for r in range(world))
+        require(worst < TOL_RING, f"{key}: {worst} against the plain "
+                                  f"attention (tol {TOL_RING})")
+    require(all(recs[r]["ring_einsum"]["launches"] == 0
+                for r in range(world)), "ring einsum: no attention kernel")
+    worst = max(recs[r]["ulysses"]["max_abs_err"] for r in range(world))
+    require(worst < TOL_VS_FP32, f"ulysses: {worst} against fp32 autograd "
+                                 f"of the plain attention on the whole "
+                                 f"tensor (tol {TOL_VS_FP32})")
+    require(all(recs[r]["ulysses"]["launches"] == {
+        "flash_fwd": 1, "flash_bwd_dkdv": 1, "flash_bwd_dq": 1}
+        and recs[r]["ulysses"]["general_launches"] == 0
+        for r in range(world)), "ulysses: K1-K3 once a rank, no general "
+                                "kernel")
+    worst = max(recs[r]["moe_ep"]["max_abs_err"] for r in range(world))
+    require(worst < TOL_EP, f"moe ep=4 against ep=1: {worst} (tol {TOL_EP})")
+    print(f"phase 5j (four ranks on the card): "
+          f"{time.perf_counter() - t_phase:.3f} s wall")
+    return [recs[r] for r in range(world)]
+
+
+def _sp4_rank(rank, world, store, out, device, shapes):
+    """One of phase 5j's ranks (a spawned process)."""
+    import traceback
+
+    try:
+        out.put((rank, _sp4_body(rank, world, store, device, shapes), None))
+    except BaseException:  # reported to the parent, which fails the phase
+        out.put((rank, None, traceback.format_exc()))
+
+
+def _sp4_body(rank, world, store, device, shapes):
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.device import full_fp32
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.moe import moe_ffn_local
+    from ray_tpu_torch.parallel.ring import (ring_attention_local,
+                                             ring_flash_attention_local)
+    from ray_tpu_torch.parallel.sharding import use_mesh
+    from ray_tpu_torch.parallel.ulysses import ulysses_attention_local
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    rec = {}
+
+    def inputs(shape, dtype, seed):
+        g = torch.Generator().manual_seed(seed)
+        return [torch.randn(shape, generator=g).to(dev, dtype)
+                for _ in range(4)]
+
+    def shard(t, dim=2):
+        return t.chunk(world, dim)[rank].contiguous()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    try:
+        with full_fp32(), use_mesh(MeshSpec(sp=world).build(dev.type)):
+            q, k, v, g_o = inputs(shapes["ring"], torch.float32, 11)
+            for causal in (True, False):
+                ref = A.mha_reference(q, k, v, causal=causal)
+                A.reset_launch_counts()
+                o, ms = timed(lambda: ring_flash_attention_local(
+                    shard(q), shard(k), shard(v), "sp", causal=causal))
+                rec[f"ring_flash_{'causal' if causal else 'full'}"] = dict(
+                    launches=A.flash_fwd_general.launches,
+                    other_launches=sum(f.launches for f in A.KERNEL_WRAPPERS),
+                    max_abs_err=rel_err(o, shard(ref)), ms=ms)
+                del ref
+            xs = [shard(t).requires_grad_() for t in (q, k, v)]
+
+            def ring_step():
+                o = ring_attention_local(*xs, "sp", causal=True)
+                o.backward(shard(g_o))
+                return o
+            A.reset_launch_counts()
+            o, ms = timed(ring_step)
+            refs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            ref = A.mha_reference(*refs, causal=True)
+            ref.backward(g_o)
+            errs = [rel_err(o, shard(ref))] + [
+                rel_err(x.grad, shard(r.grad)) for x, r in zip(xs, refs)]
+            rec["ring_einsum"] = dict(
+                max_abs_err=max(errs), errs_o_dq_dk_dv=errs, ms=ms,
+                launches=sum(f.launches for f in A.KERNEL_WRAPPERS
+                             + A.GENERAL_WRAPPERS))
+            del q, k, v, g_o, xs, refs, ref, o
+
+            q, k, v, g_o = inputs(shapes["ulysses"], torch.bfloat16, 12)
+            xs = [shard(t).requires_grad_() for t in (q, k, v)]
+
+            def ulysses_step():
+                o = ulysses_attention_local(*xs, "sp", causal=True)
+                o.backward(shard(g_o))
+                return o
+            A.reset_launch_counts()
+            o, ms = timed(ulysses_step)
+            launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
+            general = sum(f.launches for f in A.GENERAL_WRAPPERS)
+            # The plain attention on the whole tensor in fp32 autograd,
+            # as phase 3's autograd check.
+            refs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            ref = A.mha_reference(*refs, causal=True)
+            ref.backward(g_o.float())
+            errs = [rel_err(o, shard(ref))] + [
+                rel_err(x.grad, shard(r.grad)) for x, r in zip(xs, refs)]
+            rec["ulysses"] = dict(
+                launches=launches, general_launches=general,
+                max_abs_err=max(errs), errs_o_dq_dk_dv=errs, ms=ms)
+            del q, k, v, g_o, xs, refs, ref, o
+
+        with full_fp32(), use_mesh(MeshSpec(ep=world).build(dev.type)):
+            tokens, e, d, m = shapes["moe"]
+            g = torch.Generator().manual_seed(13)
+            x = torch.randn(world * tokens, d, generator=g)
+            rw, wi, wo = (torch.randn(s, generator=g) * 0.02 for s in (
+                (d, e), (e, d, m), (e, m, d)))
+            x, rw, wi, wo = (t.to(dev) for t in (x, rw, wi, wo))
+            kw = dict(num_experts=e, top_k=2, capacity_factor=MOE_EP_CAPACITY)
+            mine = x.chunk(world)[rank]
+            (y4, _), ms = timed(lambda: moe_ffn_local(
+                mine, rw, wi.chunk(world)[rank], wo.chunk(world)[rank],
+                axis_name="ep", **kw))
+            y1, _ = moe_ffn_local(mine, rw, wi, wo, axis_name=None, **kw)
+            rec["moe_ep"] = dict(max_abs_err=rel_err(y4, y1), ms=ms)
+    finally:
+        dist.destroy_process_group()
+    return rec
 
 
 if __name__ == "__main__":

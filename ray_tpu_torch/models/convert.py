@@ -3,9 +3,12 @@ the JAX package's pytrees and the port's modules.
 
 The JAX tree arrives as nested dicts of numpy arrays (``np.asarray`` of
 each leaf). Block leaves are stacked ``[L, ...]`` there and are one
-tensor per layer here (``blocks.<i>.<name>``). bf16 leaves are numpy
-arrays of an extension dtype named ``bfloat16``; they cross as their
-``uint16`` bits and are viewed as ``torch.bfloat16``, bit for bit.
+tensor per layer here (``blocks.<i>.<name>``; ``layers.<name>``
+``[L, ...]`` once a GPT-2's layers are stacked), whatever the leaf: a MoE
+GPT-2's ``router_w`` ``[L, d, E]``, ``moe_in_w`` ``[L, E, d, m]`` and
+``moe_out_w`` ``[L, E, m, d]`` cross like the dense ones. bf16 leaves
+are numpy arrays of an extension dtype named ``bfloat16``; they cross as
+their ``uint16`` bits and are viewed as ``torch.bfloat16``, bit for bit.
 
 The PPO policies (``rllib/policy.py``) and ResNet's parameters and batch
 statistics are flat dicts under the same names on both sides; conv
@@ -56,6 +59,11 @@ def _params_from_numpy(tree: Mapping, cfg, top: Sequence[str]
 def _tree_to_numpy(named: Mapping[str, torch.Tensor], cfg,
                    top: Sequence[str]) -> Dict:
     tree = {name: tensor_to_numpy(named[name]) for name in top}
+    stacked = {k.split(".", 1)[1]: tensor_to_numpy(v)
+               for k, v in named.items() if k.startswith("layers.")}
+    if stacked:  # a model whose layers are stacked (GPT2.stack_layers)
+        tree["blocks"] = dict(sorted(stacked.items()))
+        return tree
     names = {k.split(".", 2)[2] for k in named if k.startswith("blocks.")}
     tree["blocks"] = {
         n: np.stack([tensor_to_numpy(named[f"blocks.{i}.{n}"])

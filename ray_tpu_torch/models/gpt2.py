@@ -9,9 +9,23 @@ the JAX package's names and layouts (``qkv_w`` is ``[d, 3d]``, applied as
 ``convert.py`` carries a JAX pytree across.
 
 Activations run in ``cfg.dtype`` (bf16); layer norms, logits and the loss
-in fp32. Not ported yet, and refused with ``NotImplementedError``: the
-sequence-parallel attention impls, MoE, sharding rules and pp (ROADMAP
-Queue A item 7).
+in fp32.
+
+Under a mesh (``train.step.build_sharded_train``: the parameters are
+DTensors placed by the sharding rules, ``sharding.current_mesh`` is set)
+the dense parts run as DTensor ops, redistributed by ``constrain`` where
+the JAX package constrains, and everything that takes raw tensors runs on
+local shards inside ``sharding.smap``, as the JAX package's ``shard_map``
+regions: the embedding lookup, attention (the flash kernels, or the ring
+and Ulysses bodies for ``attention_impl`` "ring"/"ulysses"), the MoE FFN
+(``parallel/moe.py``, all_to_all over ``ep`` when the mesh has it), the
+GPipe pipeline over ``pp`` (rules ``{"layers": "pp"}``, the layers
+stacked ``[L, ...]`` by ``stack_layers`` and sharded over pp, a stage
+holding its own) and the chunked loss. Without a mesh the same code runs
+on plain tensors. MoE blocks (``num_experts`` > 0) replace the dense MLP
+with a top-k routed mixture and add ``moe_aux_weight * aux /
+num_layers`` to the loss; they run without remat, and not under pp (the
+JAX package refuses pp with MoE too).
 
 Remat (``remat_policy``) keeps the saved set of the JAX package's policy
 of the same name and recomputes the rest of the block in the backward,
@@ -48,6 +62,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention as attention_op
+from ..parallel.sharding import (P, constrain, current_mesh, is_dtensor,
+                                 mesh_sizes, smap, spec_axes, spec_for)
 from .common import (cross_entropy_sums, layer_norm, lm_logits,
                      truncated_normal)
 
@@ -61,11 +77,17 @@ class GPT2Config:
     d_model: int = 768
     d_mlp: Optional[int] = None
     dtype: torch.dtype = torch.bfloat16
-    attention_impl: str = "auto"  # auto|flash|reference (ring|ulysses: A7)
+    attention_impl: str = "auto"  # auto|flash|reference|ring|ulysses
     # none|full|dots|dots_attn|mem|mem2 (REMAT_KEEPS). The JAX package's
     # default is "dots", and its remat=False reads as "none" here.
     remat_policy: str = "none"
+    # MoE FFN: >0 replaces every block's dense MLP with a top-k routed
+    # mixture over ``num_experts`` experts sharded on the ``ep`` mesh axis.
+    # Ring and Ulysses run over the ``sp`` axis.
     num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     @property
     def mlp_dim(self) -> int:
@@ -96,18 +118,104 @@ CONFIGS: Dict[str, GPT2Config] = {
 }
 
 
+_IMPLS = ("auto", "flash", "reference", "ring", "ulysses")
+
+
 def _check_supported(cfg: GPT2Config) -> None:
-    if cfg.attention_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} needs sequence "
-            "parallelism: ROADMAP Queue A item 7 (parallel/ on "
-            "torch.distributed)")
-    if cfg.num_experts > 0:
-        raise NotImplementedError(
-            "MoE blocks need expert parallelism: ROADMAP Queue A item 7")
+    if cfg.attention_impl not in _IMPLS:
+        raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
     if cfg.remat_policy != "none" and cfg.remat_policy not in REMAT_KEEPS:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; one "
                          f"of none, {', '.join(REMAT_KEEPS)}")
+    if cfg.num_experts > 0 and cfg.remat_policy != "none":
+        raise NotImplementedError(
+            "MoE blocks run with remat_policy='none': the remat policies "
+            "cut the dense block's five parts (ROADMAP Queue A item 7c)")
+
+
+def block_logical_axes(cfg: GPT2Config) -> Dict[str, tuple]:
+    """Logical axes of one block's parameters: the JAX package's block
+    axes without the leading "layers" (one module a layer here)."""
+    axes = {
+        "ln1_scale": (None,), "ln1_bias": (None,),
+        "qkv_w": ("embed", "qkv"), "qkv_b": ("qkv",),
+        "proj_w": ("qkv", "embed"), "proj_b": ("embed",),
+        "ln2_scale": (None,), "ln2_bias": (None,),
+    }
+    if cfg.num_experts > 0:
+        axes.update({"router_w": ("embed", None),
+                     "moe_in_w": ("expert", "embed", "mlp"),
+                     "moe_out_w": ("expert", "mlp", "embed")})
+    else:
+        axes.update({"mlp_in_w": ("embed", "mlp"), "mlp_in_b": ("mlp",),
+                     "mlp_out_w": ("mlp", "embed"), "mlp_out_b": ("embed",)})
+    return axes
+
+
+def _attend(q, k, v, cfg: GPT2Config, rules):
+    """Causal attention by ``cfg.attention_impl``. DTensors go through an
+    ``smap`` region: the flash kernels on whole sequences, or the ring /
+    Ulysses body on sequence shards. Plain tensors run the kernels (or,
+    inside another region, the sequence-parallel body) directly."""
+    impl = cfg.attention_impl
+    if impl == "ring":
+        from ..parallel.ring import ring_attention_local as seq_body
+    elif impl == "ulysses":
+        from ..parallel.ulysses import ulysses_attention_local as seq_body
+    else:
+        seq_body = None
+
+    def body(q, k, v):
+        if seq_body is None:
+            return attention_op(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=True, impl=impl)
+        return seq_body(q, k, v, axis_name="sp")
+
+    if is_dtensor(q):
+        spec = spec_for(("batch", "heads", None if seq_body is None
+                         else "seq", None), rules)
+        return smap(body, current_mesh(), in_specs=(spec, spec, spec),
+                    out_specs=spec)(q, k, v)
+    if seq_body is not None and current_mesh() is None:
+        raise RuntimeError(
+            f"attention_impl={impl!r} needs an ambient mesh "
+            "(run via build_sharded_train or sharding.use_mesh)")
+    return body(q, k, v)
+
+
+def _moe_ffn(y, block: "Block", cfg: GPT2Config, rules):
+    """The MoE FFN of one block (``parallel/moe.py``); returns (out, aux).
+
+    With an ``ep`` axis of size > 1 each ep rank routes its own token shard
+    (the batch rule must include ``ep``) and the experts are sharded over
+    ep; aux is averaged over every mesh axis. Otherwise every token is
+    routed together (``axis_name=None``), as the JAX package does without
+    an ep axis: under a mesh the whole batch runs on every rank.
+    """
+    from ..parallel.collective import pmean
+    from ..parallel.moe import moe_ffn_local
+
+    mesh = current_mesh()
+    ep = "ep"
+    have_ep = is_dtensor(y) and mesh_sizes(mesh).get(ep, 1) > 1
+    kw = dict(num_experts=cfg.num_experts, top_k=cfg.moe_top_k,
+              capacity_factor=cfg.moe_capacity_factor)
+
+    def body(yb, rw, wi, wo):
+        bb, sb, dd = yb.shape
+        out, aux = moe_ffn_local(yb.reshape(bb * sb, dd), rw, wi, wo,
+                                 axis_name=ep if have_ep else None, **kw)
+        if have_ep:
+            aux = pmean(aux, tuple(mesh.mesh_dim_names))
+        return out.reshape(bb, sb, dd), aux
+
+    weights = (block.router_w, block.moe_in_w, block.moe_out_w)
+    if not is_dtensor(y):
+        return body(y, *weights)
+    x_spec = spec_for(("batch", "seq", None), rules) if have_ep else P()
+    w_spec = spec_for(("expert",), rules) if have_ep else P()
+    return smap(body, mesh, in_specs=(x_spec, P(), w_spec, w_spec),
+                out_specs=(x_spec, P()))(y, *weights)
 
 
 # The parts of a block in order, with the earlier outputs each one reads
@@ -192,7 +300,9 @@ class _Dense(torch.autograd.Function):
 
 
 class Block(nn.Module):
-    """One pre-LN transformer block (``_block`` in the JAX package)."""
+    """One pre-LN transformer block (``_block`` in the JAX package).
+    ``forward(x, rules)`` returns (x, aux): aux is the router's
+    load-balance loss in a MoE block, 0 otherwise."""
 
     def __init__(self, cfg: GPT2Config, generator=None):
         super().__init__()
@@ -209,10 +319,16 @@ class Block(nn.Module):
         self.proj_b = nn.Parameter(torch.zeros(d))
         self.ln2_scale = nn.Parameter(torch.ones(d))
         self.ln2_bias = nn.Parameter(torch.zeros(d))
-        self.mlp_in_w = tn((d, m))
-        self.mlp_in_b = nn.Parameter(torch.zeros(m))
-        self.mlp_out_w = tn((m, d), proj_std)
-        self.mlp_out_b = nn.Parameter(torch.zeros(d))
+        if cfg.num_experts > 0:
+            e = cfg.num_experts
+            self.router_w = tn((d, e))
+            self.moe_in_w = tn((e, d, m))
+            self.moe_out_w = tn((e, m, d), proj_std)
+        else:
+            self.mlp_in_w = tn((d, m))
+            self.mlp_in_b = nn.Parameter(torch.zeros(m))
+            self.mlp_out_w = tn((m, d), proj_std)
+            self.mlp_out_b = nn.Parameter(torch.zeros(d))
 
     @staticmethod
     def _dense(y, w, b, skip: Optional[bool]):
@@ -222,33 +338,36 @@ class Block(nn.Module):
             return F.linear(y, w.t(), b)
         return _Dense.apply(y, w, b, skip)
 
-    def _part(self, name: str, inputs, skip: Optional[bool]):
+    def _part(self, name: str, inputs, skip: Optional[bool], rules):
         if name == "qkv":
             (x,) = inputs
             y = layer_norm(x, self.ln1_scale, self.ln1_bias)
-            return self._dense(y, self.qkv_w, self.qkv_b, skip)
+            qkv = self._dense(y, self.qkv_w, self.qkv_b, skip)
+            return constrain(qkv, ("batch", "seq", "qkv"), rules)
         if name == "attn":
             (qkv,) = inputs
             b, s, _ = qkv.shape
             h, hd = self.cfg.num_heads, self.cfg.head_dim
-            # [B,S,D] -> [B,H,S,hd], contiguous for the kernels
-            q, k, v = (t.reshape(b, s, h, hd).transpose(1, 2).contiguous()
+            # [B,S,D] -> [B,H,S,hd]
+            q, k, v = (t.reshape(b, s, h, hd).transpose(1, 2)
                        for t in qkv.split(h * hd, dim=-1))
-            return attention_op(q, k, v, causal=True,
-                                impl=self.cfg.attention_impl)
+            return _attend(q, k, v, self.cfg, rules)
         if name == "proj":
             x, o = inputs
             o = o.transpose(1, 2).reshape(x.shape)
-            return x + self._dense(o, self.proj_w, self.proj_b, skip)
+            o = self._dense(o, self.proj_w, self.proj_b, skip)
+            return x + constrain(o, ("batch", "seq", None), rules)
         if name == "mlp_in":
             (x,) = inputs
             y = layer_norm(x, self.ln2_scale, self.ln2_bias)
-            return self._dense(y, self.mlp_in_w, self.mlp_in_b, skip)
+            hdn = self._dense(y, self.mlp_in_w, self.mlp_in_b, skip)
+            return constrain(hdn, ("batch", "seq", "mlp"), rules)
         (hdn,) = inputs
         hdn = F.gelu(hdn, approximate="tanh")
-        return self._dense(hdn, self.mlp_out_w, self.mlp_out_b, skip)
+        out = self._dense(hdn, self.mlp_out_w, self.mlp_out_b, skip)
+        return constrain(out, ("batch", "seq", None), rules)
 
-    def _run(self, run, outputs, rc: Optional[_Recompute], *tensors):
+    def _run(self, run, outputs, rc: Optional[_Recompute], rules, *tensors):
         """Parts ``run`` from their inputs (``tensors``, named as
         ``_inputs(run)``); returns the named ``outputs``. Under ``rc`` the
         run is a checkpointed region and its last product is skipped in
@@ -257,10 +376,16 @@ class Block(nn.Module):
         for name in run:
             skip = None if rc is None else (rc.active and name == run[-1])
             env[name] = self._part(name, [env[i] for i in _READS[name]],
-                                   skip)
+                                   skip, rules)
         return tuple(env[n] for n in outputs)
 
-    def forward(self, x):
+    def forward(self, x, rules=None):
+        if self.cfg.num_experts > 0:
+            (x,) = self._run(("qkv", "attn", "proj"), ("proj",), None, rules,
+                             x)
+            y = layer_norm(x, self.ln2_scale, self.ln2_bias)
+            out, aux = _moe_ffn(y, self, self.cfg, rules)
+            return x + constrain(out, ("batch", "seq", None), rules), aux
         policy = self.cfg.remat_policy
         runs = ([_PART_NAMES] if policy == "none"
                 else _regions(REMAT_KEEPS[policy]))
@@ -272,14 +397,14 @@ class Block(nn.Module):
             if policy == "none" or run == ("attn",):
                 # No remat, or a kept attention: _Flash's node holds q, k,
                 # v, o and lse.
-                outs = self._run(run, outputs, None, *ins)
+                outs = self._run(run, outputs, None, rules, *ins)
             else:
                 rc = _Recompute()
-                outs = checkpoint(self._run, run, outputs, rc, *ins,
+                outs = checkpoint(self._run, run, outputs, rc, rules, *ins,
                                   use_reentrant=False,
                                   context_fn=rc.contexts)
             env.update(zip(outputs, outs))
-        return env["proj"] + env["mlp_out"]
+        return env["proj"] + env["mlp_out"], 0.0
 
 
 class GPT2(nn.Module):
@@ -300,59 +425,200 @@ class GPT2(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.lnf_scale = nn.Parameter(torch.ones(d))
         self.lnf_bias = nn.Parameter(torch.zeros(d))
+        self.layers = None  # the blocks' parameters once stacked
 
-    def forward_features(self, tokens, rules=None):
-        """tokens [B, S] -> final hidden states [B, S, D] (pre LM head)."""
-        if rules is not None:
-            raise NotImplementedError(
-                "sharding rules (and pp through them) are ROADMAP Queue A "
-                "item 7; the port runs on one device")
+    def stack_layers(self) -> None:
+        """Hold the blocks' parameters stacked ``[L, ...]`` as
+        ``layers.<name>``, the JAX package's ``blocks`` leaves, in place of
+        the per-layer blocks. A rule that maps "layers" to a mesh axis then
+        shards them: under pp each stage holds, updates and keeps
+        optimizer state for its own layers only. The layers run through a
+        block without parameters (``torch.func.functional_call``)."""
+        if self.layers is not None:
+            return
+        names = [n for n, _ in self.blocks[0].named_parameters()]
+        self.layers = nn.ParameterDict({
+            n: nn.Parameter(torch.stack([getattr(b, n).detach()
+                                         for b in self.blocks]))
+            for n in names})
+        self._template = (self.blocks[0].to("meta"),)  # not a submodule
+        del self.blocks
+
+    def _layer(self, params: Dict[str, torch.Tensor], j: int, x, rules):
+        """Layer ``j`` of stacked ``params`` (``layers``' names) on x."""
+        from torch.func import functional_call
+
+        return functional_call(self._template[0],
+                               {n: t[j] for n, t in params.items()},
+                               (x, rules))
+
+    def logical_axes(self) -> Dict[str, tuple]:
+        """Logical axes of every parameter, by name (the JAX package's
+        ``init_params`` axes; a per-layer block's without the "layers"
+        dim)."""
+        axes = {"wte": ("vocab", "embed"), "wpe": (None, "embed"),
+                "lnf_scale": (None,), "lnf_bias": (None,)}
+        for name, ax in block_logical_axes(self.cfg).items():
+            if self.layers is not None:
+                axes[f"layers.{name}"] = ("layers",) + ax
+                continue
+            for i in range(self.cfg.num_layers):
+                axes[f"blocks.{i}.{name}"] = ax
+        return axes
+
+    def _embed(self, tokens, rules):
+        """Token and position embeddings in ``cfg.dtype``. On a mesh the
+        table is gathered whole and the lookup runs on each rank's
+        (batch, seq) shard of the indices, as the JAX package's
+        ``_embed_lookup``."""
         s = tokens.shape[1]
         dt = self.cfg.dtype
-        x = F.embedding(tokens, self.wte).to(dt) + self.wpe[:s].to(dt)[None]
-        for block in self.blocks:
-            x = block(x)
-        return layer_norm(x, self.lnf_scale, self.lnf_bias)
+        wte = constrain(self.wte, (None, None), rules)
+        wpe = constrain(self.wpe, (None, None), rules)
+        if is_dtensor(wte):
+            x = smap(lambda w, t: F.embedding(t, w), current_mesh(),
+                     in_specs=(P(), spec_for(("batch", "seq"), rules)),
+                     out_specs=spec_for(("batch", "seq", None), rules))(
+                wte, tokens)
+        else:
+            x = F.embedding(tokens, wte)
+        x = x.to(dt) + wpe[:s].to(dt)[None]
+        return constrain(x, ("batch", "seq", None), rules)
+
+    def forward_features(self, tokens, rules=None):
+        """tokens [B, S] -> (final hidden states [B, S, D], aux): aux is
+        the sum of the MoE blocks' router losses (0 without MoE)."""
+        if _pp_axis_size(rules) > 1:
+            return self._pp_forward_features(tokens, rules)
+        x = self._embed(tokens, rules)
+        aux = 0.0
+        for j in range(self.cfg.num_layers):
+            if self.layers is None:
+                x, a = self.blocks[j](x, rules)
+            else:
+                x, a = self._layer(dict(self.layers), j, x, rules)
+            aux = aux + a
+        return layer_norm(x, self.lnf_scale, self.lnf_bias), aux
+
+    def _pp_forward_features(self, tokens, rules):
+        """GPipe over the ``pp`` mesh axis (``parallel/pipeline.py``):
+        stage i runs layers [i*L/pp, (i+1)*L/pp) on microbatches of its
+        (batch, seq) shard, inside one ``smap`` region; embedding and the
+        final norm run outside it. The layers are stacked
+        (``stack_layers``) and sharded over pp by the "layers" rule, so a
+        stage holds its own layers' parameters and gets their gradients
+        alone, as the JAX package's ``P("pp")`` blocks."""
+        from ..parallel.pipeline import (num_microbatches_for,
+                                         pipeline_apply_local)
+
+        if self.cfg.num_experts > 0:
+            raise NotImplementedError(
+                "pp+MoE is not supported: the pipeline carry does not thread "
+                "the router aux loss (as in the JAX package); train MoE with "
+                "dp/fsdp/ep axes instead")
+        if self.layers is None:
+            raise ValueError("pp needs the layers stacked: GPT2.stack_layers"
+                             "() (build_sharded_train stacks them when the "
+                             "rules map 'layers' to a mesh axis)")
+        pp = _pp_axis_size(rules)
+        per = self.cfg.num_layers // pp
+        if per * pp != self.cfg.num_layers:
+            raise ValueError(f"{self.cfg.num_layers} layers do not divide "
+                             f"into {pp} stages")
+        m = num_microbatches_for(tokens.shape[0], pp)
+        x = self._embed(tokens, rules)
+        data_spec = spec_for(("batch", "seq", None), rules)
+
+        def stage_fn(params, xmb):
+            for j in range(per):
+                xmb, _ = self._layer(params, j, xmb, None)
+            return xmb
+
+        def body(params, xl):
+            bl, sl, d = xl.shape
+            if bl % m:
+                raise ValueError(f"{m} microbatches do not divide this "
+                                 f"rank's batch of {bl}")
+            out = pipeline_apply_local(stage_fn, params,
+                                       xl.reshape(m, bl // m, sl, d), "pp")
+            return out.reshape(bl, sl, d)
+
+        x = smap(body, current_mesh(),
+                 in_specs=(spec_for(("layers",), rules), data_spec),
+                 out_specs=data_spec)(dict(self.layers), x)
+        return layer_norm(x, self.lnf_scale, self.lnf_bias), 0.0
 
     def forward(self, tokens, rules=None):
-        """tokens [B, S] -> fp32 logits [B, S, vocab]."""
-        x = self.forward_features(tokens, rules)
+        """tokens [B, S] -> fp32 logits [B, S, vocab] (without a mesh)."""
+        x, _ = self.forward_features(tokens, rules)
         return lm_logits(x, self.wte.to(self.cfg.dtype))
 
     def loss_fn(self, batch, rules=None, loss_chunk: int = 4096):
-        """batch: {"tokens": [B, S+1]} -> next-token CE loss.
+        """batch: {"tokens": [B, S+1]} -> next-token CE loss, plus
+        ``moe_aux_weight * aux / num_layers`` with MoE.
 
         The LM head and CE run in token chunks, each under
         ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``):
         only one chunk's fp32 logits are live, and the backward recomputes
-        them. Padding to whole chunks uses ignore_id -1.
+        them. Padding to whole chunks uses ignore_id -1. On a mesh each
+        rank chunks its own (batch, seq) shard, and the sums are psummed
+        over the axes that shard them.
         """
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        x = self.forward_features(inputs, rules)
-        d = x.shape[-1]
+        x, aux = self.forward_features(inputs, rules)
         wte = self.wte.to(self.cfg.dtype)
+        if is_dtensor(x):
+            from ..parallel.collective import psum
 
-        xf = x.reshape(-1, d)
-        tf = targets.reshape(-1)
-        n = xf.shape[0]
-        # Even chunks rounded to 256 tokens, as the JAX package cuts them.
-        n_chunks = max(1, -(-n // loss_chunk))
-        per_chunk = -(-n // n_chunks)
-        chunk = min(n, -(-per_chunk // 256) * 256) if n >= 256 else n
-        pad = (-n) % chunk
-        if pad:
-            xf = F.pad(xf, (0, 0, 0, pad))
-            tf = F.pad(tf, (0, pad), value=-1)  # ignore_id
+            x_spec = spec_for(("batch", "seq", None), rules)
+            axes = spec_axes(x_spec)
 
-        nll_sum = torch.zeros((), device=x.device)
-        denom = torch.zeros((), device=x.device)
-        for xi, ti in zip(xf.split(chunk), tf.split(chunk)):
-            nll, count = checkpoint(_chunk_loss, xi, wte, ti,
-                                    use_reentrant=False)
-            nll_sum = nll_sum + nll
-            denom = denom + count
-        return nll_sum / denom.clamp_min(1.0)
+            def body(x, wte, t):
+                nll, count = _chunked_ce(x, wte, t, loss_chunk)
+                return psum(nll, axes), psum(count, axes)
+
+            nll_sum, denom = smap(
+                body, current_mesh(),
+                in_specs=(x_spec, P(), spec_for(("batch", "seq"), rules)),
+                out_specs=(P(), P()))(x, wte, targets)
+        else:
+            nll_sum, denom = _chunked_ce(x, wte, targets, loss_chunk)
+        loss = nll_sum / denom.clamp_min(1.0)
+        if self.cfg.num_experts > 0:
+            loss = loss + self.cfg.moe_aux_weight * aux / self.cfg.num_layers
+        return loss
+
+
+def _pp_axis_size(rules) -> int:
+    """Size of the pp mesh axis if the current mesh pipelines layers."""
+    mesh = current_mesh()
+    if mesh is None or rules is None or rules.get("layers") != "pp":
+        return 1
+    return mesh_sizes(mesh).get("pp", 1)
+
+
+def _chunked_ce(x, wte, targets, loss_chunk: int):
+    """(nll_sum, count) of x [..., d] against targets, in chunks of tokens
+    (even chunks rounded to 256 tokens, as the JAX package cuts them)."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d)
+    tf = targets.reshape(-1)
+    n = xf.shape[0]
+    n_chunks = max(1, -(-n // loss_chunk))
+    per_chunk = -(-n // n_chunks)
+    chunk = min(n, -(-per_chunk // 256) * 256) if n >= 256 else n
+    pad = (-n) % chunk
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, pad))
+        tf = F.pad(tf, (0, pad), value=-1)  # ignore_id
+    nll_sum = torch.zeros((), device=x.device)
+    denom = torch.zeros((), device=x.device)
+    for xi, ti in zip(xf.split(chunk), tf.split(chunk)):
+        nll, count = checkpoint(_chunk_loss, xi, wte, ti, use_reentrant=False)
+        nll_sum = nll_sum + nll
+        denom = denom + count
+    return nll_sum, denom
 
 
 def _chunk_loss(xi, wte, ti):

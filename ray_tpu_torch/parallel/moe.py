@@ -1,0 +1,121 @@
+"""Expert parallelism: a mixture-of-experts FFN with all_to_all dispatch.
+Counterpart of the JAX package's ``parallel/moe.py``.
+
+Experts are sharded over the ``ep`` mesh axis; tokens are routed top-k,
+dispatched to expert shards with a tiled all_to_all, processed as dense
+batched products at a fixed capacity, and combined back weighted by the
+router's probabilities. Routing, dispatch and the expert products are
+fp32, as in the reference.
+
+Static shapes: capacity = int(capacity_factor * tokens * k / experts),
+padded up to a multiple of 8; tokens past an expert's capacity are
+dropped, and the router's aux loss pushes toward balance.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .collective import all_to_all, axis_size
+
+
+def router_topk(logits, k: int):
+    """Top-k gating with normalized probs. logits: [tokens, E]."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # [tokens, k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    return gate_vals, gate_idx, probs
+
+
+def load_balance_loss(probs, gate_idx, num_experts: int):
+    """Switch-transformer aux loss on the top-1 choice: experts times the
+    sum of mean assignment times mean probability."""
+    assign = F.one_hot(gate_idx[..., 0], num_experts).float()
+    density = assign.mean(0)
+    density_proxy = probs.mean(0)
+    return num_experts * (density * density_proxy).sum()
+
+
+def _dispatch_mask(gate_idx, gate_vals, num_experts: int, capacity: int):
+    """Dispatch and combine tensors at a fixed capacity.
+
+    The (token, choice) pairs queue token-major (``gate_idx`` flattened
+    row by row), each expert's slots in that order.
+
+    Returns:
+      dispatch: [tokens, E, C] one-hot (token t occupies slot c of expert e)
+      combine:  [tokens, E, C] dispatch * gate weight
+    """
+    tokens, k = gate_idx.shape
+    flat_expert = gate_idx.reshape(-1)  # [tokens*k]
+    onehot = F.one_hot(flat_expert, num_experts).float()  # [T*k, E]
+    # Position of each (token, choice) pair within its expert's queue.
+    pos = torch.cumsum(onehot, dim=0) - onehot
+    slot = (pos * onehot).sum(-1)
+    keep = slot < capacity
+    slot = torch.where(keep, slot, torch.zeros_like(slot)).long()
+    slot_onehot = F.one_hot(slot, capacity).float()
+    dispatch_k = ((onehot * keep[:, None])[:, :, None]
+                  * slot_onehot[:, None, :])
+    dispatch_k = dispatch_k.reshape(tokens, k, num_experts, capacity)
+    dispatch = dispatch_k.sum(1)
+    combine = torch.einsum("tkec,tk->tec", dispatch_k, gate_vals)
+    return dispatch, combine
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def moe_ffn_local(x, router_w, w_in, w_out, *, num_experts: int,
+                  top_k: int = 2, capacity_factor: float = 1.25,
+                  axis_name: Optional[str] = "ep",
+                  activation: Callable = _gelu
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE FFN body (inside ``smap`` when axis_name is an ep axis).
+
+    x: [tokens_local, model]; router_w: [model, E] (replicated);
+    w_in: [E_local, model, hidden]; w_out: [E_local, hidden, model], the
+    experts sharded over ``axis_name`` (E_local = E / ep; rank d owns the
+    global experts [d*E_local, (d+1)*E_local)).
+
+    Returns (y [tokens_local, model], aux_loss scalar).
+    """
+    tokens, model = x.shape
+    ep = axis_size(axis_name) if axis_name else 1
+    e_local = num_experts // ep
+
+    logits = x.float() @ router_w.float()
+    gate_vals, gate_idx, probs = router_topk(logits, top_k)
+    aux = load_balance_loss(probs, gate_idx, num_experts)
+
+    capacity = max(1, int(capacity_factor * tokens * top_k / num_experts))
+    capacity = -(-capacity // 8) * 8
+    dispatch, combine = _dispatch_mask(gate_idx, gate_vals, num_experts,
+                                       capacity)
+
+    expert_in = torch.einsum("tec,tm->ecm", dispatch, x.float())
+    if axis_name and ep > 1:
+        # Tiled all_to_all: the expert dim splits into ep pieces (piece j =
+        # rank j's experts) and the pieces received concatenate on the slot
+        # dim: [E, C, m] -> [e_local, ep*C, m], source-rank-major.
+        expert_in = all_to_all(expert_in, axis_name, split_axis=0,
+                               concat_axis=1, tiled=True)
+    else:
+        expert_in = expert_in.reshape(e_local, capacity, model)
+
+    h = activation(torch.einsum("ecm,emh->ech", expert_in, w_in.float()))
+    y = torch.einsum("ech,ehm->ecm", h, w_out.float())
+
+    if axis_name and ep > 1:
+        # The strict inverse: slot blocks back to their source ranks,
+        # concatenated on the expert dim -> [E, C, m].
+        y = all_to_all(y, axis_name, split_axis=1, concat_axis=0, tiled=True)
+    else:
+        y = y.reshape(num_experts, capacity, model)
+
+    out = torch.einsum("tec,ecm->tm", combine, y)
+    return out.to(x.dtype), aux

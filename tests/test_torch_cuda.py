@@ -514,3 +514,75 @@ def test_cuda_tiny_vit_step(cuda):
     assert torch.isfinite(met["loss"]) and n == 1
     assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [4, 2, 2]
     assert [f.launches for f in tattn.GENERAL_WRAPPERS] == [0, 0, 0]
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_of_one_step_matches_build_train(cuda):
+    """A world of one on NCCL (in-process KV, ``Bootstrap``,
+    ``MeshSpec(dp=1).build()``): three ``build_sharded_train`` steps of a
+    tiny bf16 GPT-2 (head dim 64: K1-K3, one each a layer and step) give
+    ``build_train``'s losses from the same seed, within 1e-3."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel.bootstrap import Bootstrap, InMemoryKV
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.sharding import prune_rules_for_mesh
+    from ray_tpu_torch.train.optim import adamw_lowmem
+    from ray_tpu_torch.train.step import build_sharded_train, build_train
+
+    cfg = gpt2.GPT2Config(vocab_size=512, max_seq=128, num_layers=2,
+                          num_heads=2, d_model=128, attention_impl="flash")
+    tokens = torch.randint(0, 512, (4, 129), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    losses = {}
+    bs = Bootstrap(InMemoryKV(), world_size=1, session="cuda-test")
+    bs.claim_rank()
+    bs.initialize_torch("nccl")
+    try:
+        mesh = MeshSpec(dp=1).build()
+        rules = prune_rules_for_mesh(mesh)
+        sharded = build_sharded_train(
+            lambda g: gpt2.GPT2(cfg, g), lambda m, b: m.loss_fn(b, rules),
+            mesh, optimizer=adamw_lowmem(1e-3), master_fp32=True)[:2]
+        plain = build_train(lambda g: gpt2.GPT2(cfg, g),
+                            lambda m, b: m.loss_fn(b),
+                            optimizer=adamw_lowmem(1e-3), master_fp32=True)
+        for name, (init, step_fn) in (("sharded", sharded),
+                                      ("plain", plain)):
+            state = init(0)
+            tattn.reset_launch_counts()
+            losses[name] = []
+            for _ in range(3):
+                *state, m = step_fn(*state, {"tokens": tokens})
+                losses[name].append(m["loss"].item())
+            assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [6, 6, 6]
+            assert all(f.launches == 0 for f in tattn.GENERAL_WRAPPERS)
+    finally:
+        dist.destroy_process_group()
+    assert max(abs(a - b) for a, b in zip(losses["sharded"],
+                                          losses["plain"])) < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_moe_layer_matches_cpu(cuda):
+    """One MoE FFN (fp32, 8 experts, top-2, 2048 tokens at d 256): the
+    card routes every token as the CPU does; output and aux within 1e-4
+    of the largest CPU entry."""
+    from ray_tpu_torch.parallel.moe import moe_ffn_local, router_topk
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2048, 256, generator=g)
+    ws = [torch.randn(s, generator=g) * 0.05
+          for s in ((256, 8), (8, 256, 1024), (8, 1024, 256))]
+    res = {}
+    for dev in ("cpu", cuda):
+        w = [t.to(dev) for t in ws]
+        idx = router_topk(x.to(dev) @ w[0], 2)[1]
+        out, aux = moe_ffn_local(x.to(dev), *w, num_experts=8, top_k=2,
+                                 axis_name=None)
+        res[str(dev)] = (idx.cpu(), out.cpu(), aux.cpu())
+    (ic, oc, ac), (ig, og, ag) = res["cpu"], res["cuda"]
+    assert torch.equal(ic, ig)
+    assert (og - oc).abs().max() / oc.abs().max() < 1e-4
+    assert abs(ag.item() - ac.item()) < 1e-4 * abs(ac.item())
