@@ -67,7 +67,29 @@ Phases; any failure exits non-zero:
      request and requires the same 128 tokens, with no block graph
      captured after warmup; times the sampler every decode step runs
      and its Gumbel noise beside the same noise with torch.log;
-     calls LLMServer once plain and once streaming;
+     calls LLMServer once plain and once streaming; then serves 4 requests
+     of 128-token prompts and 64 new tokens, and teacher-forces their
+     tokens through the paged functions for tp1's top-2 logit margins,
+     the references of 6b;
+ 6b. llama-1b tp-sharded at tp = 2 (the same weights), two spawned ranks
+     on the one card (gloo, each on cuda:0; rank 0 schedules, rank 1
+     follows): the paged prefill's last row and four chained paged decode
+     steps against an fp32 run of the same weights within TOL_LLAMA;
+     planted faults, the w_down sum skipped on one layer (0, 11 or 21) and
+     each rank attending to the other rank's KV heads, must read above it;
+     SlotEngine(num_slots=8, chunk=128, page_size=16, decode_block=4,
+     mesh=) on the 4 requests (blocks of 4: an eager tp2 step costs ~0.13
+     s, and a block of 16 runs 16 steps for each prompt's prefill), each token equal to tp1's up to the first
+     step whose tp1 top-2 margin is below TP2_MARGIN_FACTOR times the
+     largest |tp2 - tp1| logit difference of the checks, and tp1's
+     tokens teacher-forced through tp2's paged functions giving tp1's
+     argmax at every step whose margin is not below it; each rank holds
+     about half of tp1's parameter bytes and exactly half of the KV pool;
+     no CUDA graph captured at tp2 (phase 6 requires tp1's two);
+     LLMServer(tp=2) refused on one card; decode step ms at tp2 beside
+     tp1's, printed, not gated; then bench.py's tp2 check, llama-tiny fp32
+     (random weights, seed 1) tp1 against tp2 on the card, greedy and
+     seeded-sampled (temperature 0.7, seed 99) tokens bit-equal;
   7. on-device PPO at bench.py's bench_ppo shape: OnDevicePPO(atari_sim(256),
      rollout_length=128, minibatches=8, num_sgd_iter=4), the Nature-CNN
      policy (random weights from torch.Generator seed 0). Holds the
@@ -132,7 +154,11 @@ to 1e-3 and whose peak memory must be larger (~15-40 s). Then:
     a step, step ms, tokens/s, MFU on the active parameters and peak
     memory; then layer 0's MoE FFN on the card against the CPU on 8,192
     tokens (fp32): every token's experts equal, output and aux within
-    1e-4. 5j: four spawned ranks on the one card (gloo; each on cuda:0):
+    1e-4; then the same MoE GPT-2 under remat_policy "dots" (the JAX
+    model's default), 2 + 5 steps: step ms, tokens/s and peak memory, the
+    losses within 1e-3 of the run without remat, a lower peak memory, K1
+    24 and K2, K3 12 a step (the backward runs attention again), no
+    general kernel. 5j: four spawned ranks on the one card (gloo; each on cuda:0):
     ring-flash at [1,2,8192,64] fp32, causal (K4 r + 1 times on rank r)
     and not (4 times), and the einsum ring forward and backward, within
     1e-4 of the plain attention (fp32 autograd for the gradients; no
@@ -643,8 +669,11 @@ def main(argv):
           f"{max(r['moe_ep']['max_abs_err'] for r in sp4):.3e}")
 
     # -- 6. llama-1b serving ----------------------------------------------------
-    llama_k1 = serve_phase(torch, A, dev,
-                           profile_root=root if "--profile" in argv else None)
+    llama_k1, tp2_ref = serve_phase(
+        torch, A, dev, profile_root=root if "--profile" in argv else None)
+
+    # -- 6b. llama-1b tp-sharded: two ranks on the card -------------------------
+    tp2_phase(torch, tp2_ref)
 
     # -- 7. on-device PPO ---------------------------------------------------
     ppo = ppo_phase(torch, A, dev,
@@ -715,6 +744,8 @@ def main(argv):
         k["launches_sharded_gpt2_124m"] = par["sharded"][
             "launches_per_step"].get(name, 0)
         k["launches_moe_gpt2_per_step"] = par["moe"][
+            "launches_per_step"].get(name, 0)
+        k["launches_moe_gpt2_dots_per_step"] = par["moe_dots"][
             "launches_per_step"].get(name, 0)
         k["launches_ring_sp4"] = [
             r["ring_flash_causal"]["launches"]
@@ -1075,7 +1106,8 @@ def drain(engine, handles, limit=100000):
 
 def serve_phase(torch, A, dev, profile_root=None):
     """Phase 6: llama-1b on the port's serving path. Returns K1's launches
-    on the forward check. With ``profile_root``, also writes a device-time
+    on the forward check and what phase 6b holds tp2 to
+    (``tp2_reference``). With ``profile_root``, also writes a device-time
     breakdown of one eager decode step."""
     import asyncio
 
@@ -1317,6 +1349,9 @@ def serve_phase(torch, A, dev, profile_root=None):
           f"(with torch.log instead of XLA's: {t_noise_torch:.4f} ms)")
     if profile_root is not None:
         profile_decode(torch, model, engine, profile_root)
+    tp2_ref = tp2_reference(torch, llama, model, engine,
+                            [prompt() for _ in range(TP2_REQUESTS)], toks,
+                            tables)
     del engine, model
     torch.cuda.empty_cache()
 
@@ -1345,7 +1380,7 @@ def serve_phase(torch, A, dev, profile_root=None):
     del server
     torch.cuda.empty_cache()
     print(f"serving phase: {time.perf_counter() - t_phase:.3f} s wall")
-    return k1
+    return k1, tp2_ref
 
 
 def profile_decode(torch, model, engine, root):
@@ -1928,13 +1963,22 @@ SP4_TIMEOUT_S = 600
 
 
 def gpt2_124m_config(gpt2, torch, **kw):
-    """gpt2-124m's widths at seq 1024, bf16, the flash kernels, no remat."""
+    """gpt2-124m's widths at seq 1024, bf16, the flash kernels, no remat
+    unless ``kw`` sets a policy."""
     base = gpt2.CONFIGS["gpt2-124m"]
-    return gpt2.GPT2Config(vocab_size=base.vocab_size, max_seq=1024,
-                           num_layers=base.num_layers,
-                           num_heads=base.num_heads, d_model=base.d_model,
-                           dtype=torch.bfloat16, attention_impl="flash",
-                           remat_policy="none", **kw)
+    return gpt2.GPT2Config(**dict(
+        dict(vocab_size=base.vocab_size, max_seq=1024,
+             num_layers=base.num_layers, num_heads=base.num_heads,
+             d_model=base.d_model, dtype=torch.bfloat16,
+             attention_impl="flash", remat_policy="none"), **kw))
+
+
+# Phase 5i's MoE GPT-2, and the K1-K3 launches a layer and a step each
+# policy implies: "dots" recomputes attention in the backward (K1 twice).
+MOE_124M = dict(num_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+                moe_aux_weight=0.01)
+PER_LAYER = {"none": dict(flash_fwd=1, flash_bwd_dkdv=1, flash_bwd_dq=1),
+             "dots": dict(flash_fwd=2, flash_bwd_dkdv=1, flash_bwd_dq=1)}
 
 
 def mesh_phases(torch, A, sched, data, ref, card="cuda", profile_root=None):
@@ -1944,8 +1988,10 @@ def mesh_phases(torch, A, sched, data, ref, card="cuda", profile_root=None):
     ``build_sharded_train`` (the 5b phase's weights, tokens and recipe) and
     holds its 7 losses to ``ref["losses"]`` (``build_train``'s); 5i trains
     MoE GPT-2 at gpt2-124m's widths (8 experts, top-2, capacity 1.25)
-    through it and holds one MoE layer on the card to the CPU. Returns
-    both phases' records."""
+    through it and holds one MoE layer on the card to the CPU, then trains
+    it again under remat_policy "dots" (the JAX model's default): losses
+    within TOL_REMAT_LOSS of the run without remat, a lower peak memory.
+    Returns the three runs' records."""
     import torch.distributed as dist
 
     from ray_tpu_torch.models import gpt2
@@ -1966,11 +2012,11 @@ def mesh_phases(torch, A, sched, data, ref, card="cuda", profile_root=None):
               f"{dist.get_world_size()}, DeviceMesh {mesh.mesh_dim_names} "
               f"shape {tuple(mesh.mesh.shape)} on {mesh.device_type}")
         out = {}
-        for name, cfg in (("sharded", gpt2_124m_config(gpt2, torch)),
-                          ("moe", gpt2_124m_config(
-                              gpt2, torch, num_experts=8, moe_top_k=2,
-                              moe_capacity_factor=1.25,
-                              moe_aux_weight=0.01))):
+        for name, cfg in (
+                ("sharded", gpt2_124m_config(gpt2, torch)),
+                ("moe", gpt2_124m_config(gpt2, torch, **MOE_124M)),
+                ("moe_dots", gpt2_124m_config(gpt2, torch, **MOE_124M,
+                                              remat_policy="dots"))):
             t_phase = time.perf_counter()
             init, step_fn, _ = build_sharded_train(
                 lambda g, cfg=cfg: gpt2.GPT2(cfg, g),
@@ -1987,7 +2033,8 @@ def mesh_phases(torch, A, sched, data, ref, card="cuda", profile_root=None):
             general = general_launches(A)
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             rec = mesh_record(torch, gpt2, cfg, name, losses, norms, elapsed,
-                              launches, general, peak_gb, n_params, ref)
+                              launches, general, peak_gb, n_params,
+                              dict(ref, moe=out.get("moe")))
             if name == "moe":
                 if profile_root:
                     rec["profile"] = profile_moe_step(
@@ -2015,11 +2062,11 @@ def mesh_record(torch, gpt2, cfg, name, losses, norms, elapsed, launches,
     print(f"{name}: grad norms {norms}")
     require(all(math.isfinite(x) for x in losses + norms),
             f"{name}: finite losses")
-    expect = n * cfg.num_layers
-    print(f"{name}: launches over {n} steps {launches} (expect {expect} "
-          f"each); general kernels {general}")
-    require(all(v == expect for v in launches.values()),
-            f"{name}: launch counts")
+    expect = {k: n * cfg.num_layers * v
+              for k, v in PER_LAYER[cfg.remat_policy].items()}
+    print(f"{name}: launches over {n} steps {launches} (expect {expect}: "
+          f"remat_policy {cfg.remat_policy!r}); general kernels {general}")
+    require(launches == expect, f"{name}: launch counts")
     require(general == 0, f"{name}: no general kernel")
     rec = dict(step_ms=step_ms, tokens_s=tok_s, peak_gb=peak_gb,
                losses=losses, launches_per_step={
@@ -2054,6 +2101,19 @@ def mesh_record(torch, gpt2, cfg, name, losses, norms, elapsed, launches,
           f"einsums not counted, against {PEAK_BF16_FLOPS / 1e12:.0f} "
           f"TFLOP/s), peak memory {peak_gb:.3f} GB")
     rec.update(mfu_pct=100 * mfu, active_params=active, params=n_params)
+    if name == "moe_dots":
+        plain = ref["moe"]
+        diffs = [abs(a - b) for a, b in zip(losses, plain["losses"])]
+        print(f"moe gpt2 under remat_policy 'dots': step {step_ms:.3f} ms "
+              f"against {plain['step_ms']:.3f} ms without remat; peak "
+              f"memory {peak_gb:.3f} GB against {plain['peak_gb']:.3f} GB; "
+              f"losses against no remat: largest |difference| "
+              f"{max(diffs):.3e} (tol {TOL_REMAT_LOSS})")
+        require(max(diffs) < TOL_REMAT_LOSS,
+                "moe gpt2 'dots' losses equal the run without remat")
+        require(peak_gb < plain["peak_gb"],
+                "moe gpt2 'dots' peak memory below the run without remat")
+        rec.update(max_loss_diff=max(diffs))
     return rec
 
 
@@ -2156,6 +2216,383 @@ def moe_layer_check(torch, cfg, model, card="cuda"):
                 tokens=int(x.shape[0]))
 
 
+# Phase 6b: llama-1b at tp = 2 as two ranks on the one card. Traffic: 4
+# requests of 128-token prompts, 64 new tokens. A tp2 token must equal
+# tp1's up to the first step at which tp1's top-2 logit margin is below
+# TP2_MARGIN_FACTOR times the largest |tp2 - tp1| logit difference
+# measured on the check rows (the bf16 sums of the row-parallel products
+# run in another order, so near ties may break the other way).
+TP2_REQUESTS, TP2_NEW = 4, 64
+TP2_MARGIN_FACTOR = 4.0
+TP2_FAULT_LAYERS = (0, 11, 21)  # the w_down sum skipped on one of these
+TP2_TIMEOUT_S = 600
+
+
+def tp2_reference(torch, llama, model, engine, prompts, check_toks, tables):
+    """What phase 6b holds its tp2 runs to, from phase 6's tp1 model and
+    engine (same weights): the engine's greedy tokens for ``prompts`` and
+    its decode step; tp1's top-2 logit margins at each of those steps (the
+    same tokens teacher-forced through the paged functions); and, on the
+    128-token check prompt in phase 6's page tables, the paged prefill's
+    last row and four chained paged decode steps (tokens chained from the
+    fp32 run) in fp32 (the same bf16-valued weights, fp32 activations) and
+    in bf16."""
+    cfg, dev, ps = model.cfg, check_toks.device, engine.page_size
+    pps = cfg.max_seq // ps
+    engine.reset_decode_profile()
+    handles = [engine.submit(p, max_new=TP2_NEW) for p in prompts]
+    drain(engine, handles)
+    tokens = [h.result(timeout=0).tokens for h in handles]
+    step_ms = engine.decode_profile()["avg_step_ms"]
+    engine.clear_prefix_cache()
+    n = len(prompts)
+    pool = llama.init_paged_kv_cache(cfg, n * pps + 1, ps, dev)
+    tab = (1 + torch.arange(n * pps, device=dev)).reshape(n, pps)
+    steps = [torch.stack([llama.prefill_chunk_paged(
+        model, pool, tab, torch.tensor(p, device=dev), i, 0, len(p), ps)[0]
+        for i, p in enumerate(prompts)])]
+    toks = torch.tensor(tokens, device=dev)
+    for j in range(TP2_NEW - 1):
+        pos = torch.full((n,), len(prompts[0]) + j, device=dev)
+        steps.append(llama.decode_slots_paged(model, pool, tab, toks[:, j],
+                                              pos, ps)[0])
+    logits = torch.stack(steps, 1).float()
+    top2 = logits.topk(2, dim=-1)
+    margins = (top2.values[..., 0] - top2.values[..., 1]).cpu()
+    forced_idx = top2.indices[..., 0].cpu()
+    forced = int((top2.indices[..., 0] == toks).sum())
+    del pool, steps, logits
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32 = copy.deepcopy(model).float()
+    for m in (model32, *model32.blocks):
+        m.cfg = cfg32
+    rows = {"fp32": [], "bf16": []}
+    runs = (("fp32", model32), ("bf16", model))
+    pools = {k: llama.init_paged_kv_cache(m.cfg, 2 * pps + 1, ps, dev)
+             for k, m in runs}
+    for k, m in runs:
+        rows[k].append(llama.prefill_chunk_paged(
+            m, pools[k], tables, check_toks, 1, 0, len(check_toks),
+            ps)[0].float())
+    chain = []
+    for step in range(4):
+        tok = rows["fp32"][-1].argmax()
+        chain.append(tok)
+        both = torch.stack([torch.zeros_like(tok), tok])
+        pos = torch.tensor([cfg.max_seq, len(check_toks) + step], device=dev)
+        for k, m in runs:
+            rows[k].append(llama.decode_slots_paged(
+                m, pools[k], tables, both, pos, ps)[0][1].float())
+    del model32, pools
+    torch.cuda.empty_cache()
+    print(f"tp1 reference for phase 6b: {n} requests x {TP2_NEW} tokens, "
+          f"decode step {step_ms} ms; teacher-forced argmax equal to the "
+          f"engine's tokens {forced}/{n * TP2_NEW}; top-2 margins: median "
+          f"{margins.median().item():.4f}, smallest "
+          f"{margins.min().item():.4f}")
+    return dict(prompts=prompts, tokens=tokens, tp1_step_ms=step_ms,
+                margins=margins, forced=forced_idx, check=check_toks.cpu(),
+                tables=tables.cpu(),
+                chain=torch.stack(chain).cpu(),
+                ref32=torch.stack(rows["fp32"]).cpu(),
+                ref16=torch.stack(rows["bf16"]).cpu())
+
+
+def tp2_phase(torch, ref, device="cuda"):
+    """Phase 6b: llama-1b (phase 6's weights) served tp-sharded by two
+    spawned ranks on the one card (a gloo group, each rank on cuda:0, as
+    phase 5j). Gates: the tp2 paged prefill's last row and four chained
+    decode steps within TOL_LLAMA of the fp32 run, with the w_down sum
+    skipped on one layer (each of TP2_FAULT_LAYERS in turn) and with each
+    rank attending to the other's KV heads reading above it; the engine's
+    greedy tokens equal to tp1's up to the first small margin
+    (TP2_MARGIN_FACTOR), and tp1's tokens teacher-forced through tp2
+    giving tp1's argmax wherever the margin is wide; each rank about half of tp1's parameter bytes
+    and exactly half of its KV pool; no CUDA graph captured; LLMServer
+    refusing tp=2 on one card; then llama-tiny fp32, tp1 against tp2 on
+    the card, greedy and seeded-sampled tokens bit-equal (bench.py's tp2
+    check). Prints the decode step at tp2 beside tp1's."""
+    t_phase = time.perf_counter()
+    world = 2
+    recs = run_ranks(_tp2_rank, world, (device, ref), TP2_TIMEOUT_S,
+                     "tp2 ranks on the card")
+    r0, r1 = recs[0], recs[1]
+    for r in range(world):
+        print(f"tp2 rank {r}: " + "; ".join(
+            f"{k} {v}" for k, v in recs[r].items()
+            if k not in ("tokens", "forced")))
+    checks = r0["checks"]
+    require(all(e < TOL_LLAMA for e in checks["vs_fp32"]),
+            f"tp2 paged prefill and decode against fp32 (tol {TOL_LLAMA})")
+    require(r0["checks"] == r1["checks"], "both ranks see the same logits")
+    for name, e in r0["faults"].items():
+        require(e > TOL_LLAMA, f"the tp2 gate sees the fault {name} "
+                               f"({e:.3e} against {TOL_LLAMA})")
+    delta = max(checks["vs_tp1_bf16_abs"])
+    limit = TP2_MARGIN_FACTOR * delta
+    checked = equal = 0
+    for i, (t1, t2) in enumerate(zip(ref["tokens"], r0["tokens"])):
+        small = [j for j, m in enumerate(ref["margins"][i].tolist())
+                 if m < limit]
+        upto = small[0] if small else len(t1)
+        checked += upto
+        equal += sum(a == b for a, b in zip(t1, t2))
+        require(t1[:upto] == t2[:upto],
+                f"tp2 request {i}: tokens equal to tp1's up to step {upto}")
+    print(f"tp2 engine tokens: equal to tp1's {equal}/{TP2_REQUESTS * TP2_NEW};"
+          f" gated steps {checked} (up to each request's first margin "
+          f"below {limit:.4f} = {TP2_MARGIN_FACTOR} x the largest |tp2 - "
+          f"tp1| logit difference {delta:.4f})")
+    wide = ref["margins"] >= limit
+    forced_equal = int((r0["forced"] == ref["forced"])[wide].sum())
+    print(f"tp1's tokens teacher-forced through tp2: argmax equal to tp1's "
+          f"at {forced_equal} of the {int(wide.sum())} steps whose tp1 "
+          f"margin is at least {limit:.4f}, and at "
+          f"{int((r0['forced'] == ref['forced']).sum())} of all "
+          f"{TP2_REQUESTS * TP2_NEW}")
+    require(forced_equal == int(wide.sum()),
+            "tp2's argmax equals tp1's wherever tp1's margin is wide")
+    for r, rec in recs.items():
+        require(0.49 < rec["param_bytes_frac"] < 0.51,
+                f"rank {r} holds about half of tp1's parameter bytes")
+        require(rec["kv_pool_frac"] == 0.5,
+                f"rank {r} holds half of the KV pool")
+    require(r0["graphs"] == 0, "no CUDA graph captured at tp2")
+    require(r0["server_refused"], "LLMServer(tp=2) refused on one card")
+    require(r0["tiny_greedy_equal"] and r0["tiny_sampled_equal"],
+            "llama-tiny fp32 on the card: tp2 tokens bit-equal to tp1's")
+    print(f"llama-1b tp2 on {smi_line()}: decode step {r0['step_ms']} ms "
+          f"(two gloo ranks sharing the card, sums and gathers through "
+          f"host memory) against tp1's {ref['tp1_step_ms']} ms (one rank, "
+          f"CUDA graphs); phase 6b {time.perf_counter() - t_phase:.3f} s "
+          f"wall")
+
+
+def _tp2_rank(rank, world, store, out, device, ref):
+    """One of phase 6b's ranks (a spawned process)."""
+    import traceback
+
+    try:
+        out.put((rank, _tp2_body(rank, world, store, device, ref), None))
+    except BaseException:  # reported to the parent, which fails the phase
+        out.put((rank, None, traceback.format_exc()))
+
+
+def _tp2_body(rank, world, store, device, ref):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.device import full_fp32
+    from ray_tpu_torch.llm.engine import SlotEngine
+    from ray_tpu_torch.llm.serve import LLMServer
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.collective import ppermute
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.sharding import use_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    sync = lambda: None
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev, sync = torch.device("cuda", 0), torch.cuda.synchronize
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    rec = {}
+    try:
+        mesh = MeshSpec(tp=world).build(dev.type)
+        cfg = llama.CONFIGS["llama-1b"]
+        ps = 16
+        pps = cfg.max_seq // ps
+        model = llama.Llama(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev).to(cfg.dtype).requires_grad_(False)
+        full_bytes = sum(p.numel() * p.element_size()
+                         for p in model.parameters())
+        engine = SlotEngine(model, num_slots=8, chunk=128, page_size=ps,
+                            decode_block=4, mesh=mesh, device=dev)
+        rules = engine._rules
+        local = {p.to_local().untyped_storage().data_ptr():
+                 p.to_local().untyped_storage().nbytes()
+                 for p in model.parameters()}
+        rec["param_bytes_frac"] = sum(local.values()) / full_bytes
+        kv = engine._cache["kv"]
+        tp1_pool = (cfg.num_layers * 2 * engine.pages_total * ps
+                    * cfg.num_kv_heads * cfg.head_dim * 2)
+        rec["kv_pool_frac"] = kv.numel() * kv.element_size() / tp1_pool
+
+        check = ref["check"].to(dev)
+        tables = ref["tables"].to(dev)
+        ref32, ref16 = ref["ref32"].to(dev), ref["ref16"].to(dev)
+
+        def run_check(n_steps):
+            """The paged prefill's last row, then ``n_steps`` decode steps
+            on the fp32 chain's tokens, on a fresh pool."""
+            pool = llama.init_paged_kv_cache(cfg, 2 * pps + 1, ps, dev,
+                                             shards=world)
+            rows = [llama.prefill_chunk_paged(
+                model, pool, tables, check, 1, 0, len(check), ps, rules)[0]]
+            for step in range(n_steps):
+                tok = ref["chain"][step].to(dev)
+                both = torch.stack([torch.zeros_like(tok), tok])
+                pos = torch.tensor([cfg.max_seq, len(check) + step],
+                                   device=dev)
+                rows.append(llama.decode_slots_paged(
+                    model, pool, tables, both, pos, ps, rules)[0][1])
+            return torch.stack(rows).float()
+
+        got = run_check(4)
+        sync()
+        rec["checks"] = dict(
+            vs_fp32=[rel_err(a, b) for a, b in zip(got, ref32)],
+            vs_tp1_bf16=[rel_err(a, b) for a, b in zip(got, ref16)],
+            vs_tp1_bf16_abs=[(a - b).abs().max().item()
+                             for a, b in zip(got, ref16)],
+            argmax_equal_fp32=[int(a.argmax()) == int(b.argmax())
+                               for a, b in zip(got, ref32)])
+        # Planted faults, on the prefill's last row.
+        faults = {}
+        tp_sum = llama._tp_sum
+        for layer in TP2_FAULT_LAYERS:
+            calls = [0]
+
+            def skipping(x, sh, layer=layer, calls=calls):
+                calls[0] += 1
+                # embedding (call 1), then wo and w_down of every layer
+                return x if calls[0] == 3 + 2 * layer else tp_sum(x, sh)
+            llama._tp_sum = skipping
+            try:
+                faults[f"w_down sum skipped on layer {layer}"] = rel_err(
+                    run_check(0)[0], ref32[0])
+            finally:
+                llama._tp_sum = tp_sum
+        attend = llama._gqa_paged_attention
+
+        def swapped(q, kv, mask):
+            with use_mesh(mesh):
+                other = ppermute(kv, "tp", [(0, 1), (1, 0)])
+            return attend(q, other, mask)
+        llama._gqa_paged_attention = swapped
+        try:
+            faults["each rank attends to the other's KV heads"] = rel_err(
+                run_check(0)[0], ref32[0])
+        finally:
+            llama._gqa_paged_attention = attend
+        rec["faults"] = faults
+        # tp1's tokens teacher-forced through the tp2 paged functions.
+        n = len(ref["prompts"])
+        pool = llama.init_paged_kv_cache(cfg, n * pps + 1, ps, dev,
+                                         shards=world)
+        tab = (1 + torch.arange(n * pps, device=dev)).reshape(n, pps)
+        steps = [torch.stack([llama.prefill_chunk_paged(
+            model, pool, tab, torch.tensor(p, device=dev), i, 0, len(p), ps,
+            rules)[0].argmax() for i, p in enumerate(ref["prompts"])])]
+        toks = torch.tensor(ref["tokens"], device=dev)
+        for j in range(TP2_NEW - 1):
+            pos = torch.full((n,), len(ref["prompts"][0]) + j, device=dev)
+            steps.append(llama.decode_slots_paged(
+                model, pool, tab, toks[:, j], pos, ps, rules)[0].argmax(-1))
+        rec["forced"] = torch.stack(steps, 1).cpu()
+        del pool
+
+        # The engine on 4 requests.
+        if rank == 0:
+            engine.reset_decode_profile()
+            t0 = time.perf_counter()
+            handles = [engine.submit(p, max_new=TP2_NEW)
+                       for p in ref["prompts"]]
+            drain(engine, handles)
+            rec["wall_s"] = time.perf_counter() - t0
+            res = [h.result(timeout=0) for h in handles]
+            rec["tokens"] = [r.tokens for r in res]
+            prof = engine.decode_profile()
+            rec["step_ms"] = prof["avg_step_ms"]
+            rec["decode_profile"] = prof
+            rec["graphs"] = len(engine._graphs)
+            engine.stop()
+            # One card: refused before any collective.
+            try:
+                LLMServer(model="llama-tiny", tp=world, device=device)
+                rec["server_refused"] = False
+            except ValueError as e:
+                rec["server_refused"] = "devices" in str(e)
+        else:
+            engine.follow()
+        del engine, model
+        torch.cuda.empty_cache()
+
+        # bench.py's tp2 check: llama-tiny fp32, tp1 against tp2.
+        tiny = llama.CONFIGS["llama-tiny"]
+        prompt = [int(t) for t in np.random.default_rng(11).integers(
+            1, tiny.vocab_size, size=17)]
+        kw = dict(num_slots=2, chunk=8, page_size=8, decode_block=2,
+                  device=dev)
+        sampled = dict(temperature=0.7, seed=99)
+
+        def tiny_model():
+            return llama.Llama(tiny, torch.Generator(device=dev).manual_seed(
+                1), dev).requires_grad_(False)
+
+        def tokens(eng, **s):
+            h = eng.submit(prompt, max_new=12, **s)
+            drain(eng, [h])
+            return h.result(timeout=0).tokens
+
+        with full_fp32():
+            tp = SlotEngine(tiny_model(), mesh=mesh, **kw)
+            if rank == 0:
+                one = SlotEngine(tiny_model(), **kw)
+                t1, s1 = tokens(one), tokens(one, **sampled)
+                t2, s2 = tokens(tp), tokens(tp, **sampled)
+                rec.update(tiny_greedy_equal=t1 == t2,
+                           tiny_sampled_equal=s1 == s2,
+                           tiny_tokens=dict(tp1=t1, tp2=t2, tp1_sampled=s1,
+                                            tp2_sampled=s2))
+                tp.stop()
+            else:
+                tp.follow()
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def run_ranks(target, world, args, timeout_s, what):
+    """Spawn ``world`` processes ``target(rank, world, store, out, *args)``
+    that join one gloo group over a ``file://`` store and put (rank,
+    record, error) on ``out``; returns the records by rank, and fails the
+    phase on a rank's error or after ``timeout_s`` without a record. Every
+    process is joined or terminated before it returns."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    store = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "store")
+    procs = [ctx.Process(target=target, args=(r, world, store, out, *args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    recs, error = {}, None
+    try:
+        while len(recs) < world and error is None:
+            rank, rec, err = out.get(timeout=timeout_s)
+            if err is not None:
+                error = f"rank {rank}: {err}"
+            recs[rank] = rec
+    except queue_mod.Empty:
+        error = f"ranks gave no result within {timeout_s} s"
+    finally:
+        for p in procs:
+            p.join(timeout=10 if error else 60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    require(error is None, f"{what}: {error}")
+    return recs
+
+
 SP4_SHAPES = dict(ring=RING_SHAPE, ulysses=ULYSSES_SHAPE,
                   moe=(MOE_EP_TOKENS, 8, 768, 3072))
 
@@ -2165,36 +2602,10 @@ def sp4_phase(torch, device="cuda", shapes=SP4_SHAPES):
     rank on cuda:0; NCCL refuses two ranks on one device). ``shapes``: the
     ring and Ulysses [B, H, S, D] and the MoE layer's (tokens a rank,
     experts, d, hidden). Returns each rank's record (``_sp4_body``)."""
-    import multiprocessing as mp
-    import queue as queue_mod
-    import tempfile
-
     t_phase = time.perf_counter()
     world = 4
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    store = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "store")
-    procs = [ctx.Process(target=_sp4_rank,
-                         args=(r, world, store, out, device, shapes))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    recs, error = {}, None
-    try:
-        while len(recs) < world and error is None:
-            rank, rec, err = out.get(timeout=SP4_TIMEOUT_S)
-            if err is not None:
-                error = f"rank {rank}: {err}"
-            recs[rank] = rec
-    except queue_mod.Empty:
-        error = f"ranks gave no result within {SP4_TIMEOUT_S} s"
-    finally:
-        for p in procs:
-            p.join(timeout=10 if error else 60)
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=10)
-    require(error is None, f"four ranks on the card: {error}")
+    recs = run_ranks(_sp4_rank, world, (device, shapes), SP4_TIMEOUT_S,
+                     "four ranks on the card")
     for r in range(world):
         rec = recs[r]
         print(f"sp4 rank {r}: " + "; ".join(

@@ -28,10 +28,25 @@ cache: counterpart of the JAX package's ``llm/engine.py``.
 
 Where JAX donates the cache to a jitted program, the port updates one
 preallocated cache tensor in place, on the engine's device and stream
-(every ``step()`` enters both, from whichever thread runs it). Not ported
-here: tp-sharded serving (``mesh``/``rules``, ROADMAP Queue A item 7), the
-Prometheus gauges and the trace spans (both live in the JAX package's
-observability layer; ROADMAP Queue A item 5).
+(every ``step()`` enters both, from whichever thread runs it).
+
+tp-sharded serving (``mesh``, ``rules``): the parameters are placed by
+their logical axes (``Llama.logical_axes()``) under ``SERVE_RULES``, and
+each rank's page pool holds its Hkv/tp heads; the paged functions run on
+each rank's shards with sums and gathers over tp (``models/llama.py``).
+The JAX engine is one program over every chip; here every rank is a
+process. Rank 0 alone schedules: it holds the request plane, the radix
+index, the sessions and the clock, and at every operation that touches
+the cache (a block, a copy-on-write page copy, a session's page writes or
+page gather) it broadcasts that operation's host inputs over the tp
+group; the other ranks replay them in the same order (``follow``, or the
+thread ``start()`` runs on them) until rank 0's engine stops. Tokens are
+fetched on rank 0 only. Under tp > 1 a block runs eagerly, never as a
+CUDA graph: a gloo exchange stages through host memory and cannot sit
+inside a capture (a graph-captured NCCL path is a later ROADMAP item).
+
+Not ported here: the Prometheus gauges and the trace spans (both live in
+the JAX package's observability layer; ROADMAP Queue A item 5).
 """
 
 from __future__ import annotations
@@ -46,11 +61,14 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.exceptions import EngineStoppedError
 from ..device import default_device
 from ..models import llama
 from ..models.convert import tensor_from_numpy, tensor_to_numpy
+from ..parallel import sharding as shd
+from ..parallel.collective import all_gather
 from . import sampling
 from .paged import OverloadedError, PagePool, RadixIndex
 
@@ -166,7 +184,19 @@ class _Slot:
 class SlotEngine:
     """Continuous-batching generation over a paged KV-cache pool, on
     ``device`` (``cuda`` unless the caller asks for the CPU), which must
-    be where ``model``'s parameters live."""
+    be where ``model``'s parameters live.
+
+    With ``mesh`` (a ``DeviceMesh`` whose only axis of size > 1 is tp,
+    built on every rank of its group) the engine places ``model``'s
+    parameters on it in place (each rank passes the same values) and
+    serves tp-sharded; requests go to rank 0, and the other ranks run the
+    follower loop (module docstring)."""
+
+    # Rule deltas over parallel.sharding.DEFAULT_RULES: the page pool's
+    # heads axis is the KV-heads axis, which the training table leaves
+    # replicated; serving maps it to tp so each rank holds 1/tp of every
+    # KV page.
+    SERVE_RULES = {"kv": "tp"}
 
     def __init__(self, model: llama.Llama, num_slots: int = 8,
                  chunk: int = 64, seed: int = 0, decode_block: int = 1,
@@ -176,10 +206,6 @@ class SlotEngine:
                  queue_timeout_s: Optional[float] = None,
                  max_sessions: int = 256,
                  mesh=None, rules=None, device=None):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "tp-sharded serving (mesh/rules) is ROADMAP Queue A item 7;"
-                " the port serves from one device")
         cfg = model.cfg
         if cfg.max_seq % chunk != 0:
             raise ValueError(
@@ -212,6 +238,15 @@ class SlotEngine:
         self._device = dev
         self._cuda = dev.type == "cuda"
         self._stream = torch.cuda.current_stream(dev) if self._cuda else None
+        self._rules = None if mesh is None else self._place(mesh, rules)
+        # This rank's shards (the whole model without a mesh): checks the
+        # placement against the rules once, here.
+        self._shards = llama._shards(model, self._rules)
+        self.tp = self._shards.n
+        self.rank = self._shards.rank
+        self._followers_stopped = False
+        # Graph capture only on one rank (module docstring).
+        self._graphable = self._cuda and self.tp == 1
         self._pages_per_seq = cfg.max_seq // page_size
         # Pool default: num_slots full sequences plus the scratch page.
         self._num_pages = (num_pages if num_pages is not None
@@ -221,16 +256,22 @@ class SlotEngine:
             RadixIndex(self._pool, page_size) if prefix_cache else None)
         self._tables = np.zeros((num_slots, self._pages_per_seq),
                                 dtype=np.int64)
+        # The pool's KV-heads axis under the rules: each rank allocates
+        # its own heads.
+        self.kv_spec = shd.spec_for(llama.PAGED_KV_AXES, self._rules)
         self._cache = llama.init_paged_kv_cache(cfg, self._num_pages,
-                                                page_size, dev)
+                                                page_size, dev,
+                                                shards=self.tp)
         self._base_seed = seed
         self._req_counter = 0
         # Decode roofline: a decode step streams the params plus the KV
-        # pages the live slots attend through HBM once.
-        self._param_bytes = sum(p.numel() * p.element_size()
-                                for p in model.parameters())
+        # pages the live slots attend through HBM once, on every rank.
+        self._param_bytes = self.tp * sum(
+            t.numel() * t.element_size() for t in (
+                p.to_local() if shd.is_dtensor(p) else p
+                for p in model.parameters()))
         kv = self._cache["kv"]
-        self._kv_page_bytes = kv.numel() * kv.element_size() // max(
+        self._kv_page_bytes = self.tp * kv.numel() * kv.element_size() // max(
             1, self._num_pages)
         self._prof_steps = 0
         self._prof_wall = 0.0
@@ -295,6 +336,96 @@ class SlotEngine:
         done.record(self._stream)
         return host, done
 
+    # -- tp: placement and the follower protocol ------------------------------
+
+    def _place(self, mesh, rules):
+        """Place the model's parameters on ``mesh`` under ``SERVE_RULES``
+        merged with ``rules`` and pruned for the mesh (as the JAX engine);
+        returns the rules. Refuses a mesh that is not a ``DeviceMesh``, a
+        mesh with another axis of size > 1 than tp, and a tp that does not
+        divide the head counts, d_mlp or the vocab."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                f"mesh must be a torch DeviceMesh (MeshSpec.build()), not "
+                f"{type(mesh).__name__}")
+        cfg = self.cfg
+        sizes = shd.mesh_sizes(mesh)
+        tp = sizes.get("tp", 1)
+        others = sorted(a for a, n in sizes.items() if n > 1 and a != "tp")
+        if others:
+            raise ValueError(f"the engine shards over tp alone; the mesh "
+                             f"also splits {others}")
+        if tp > 1 and (cfg.num_kv_heads % tp or cfg.num_heads % tp
+                       or cfg.d_mlp % tp or cfg.vocab_size % tp):
+            raise ValueError(
+                f"tp={tp} must divide num_kv_heads ({cfg.num_kv_heads}), "
+                f"num_heads ({cfg.num_heads}), d_mlp ({cfg.d_mlp}) and "
+                f"vocab ({cfg.vocab_size})")
+        rules = shd.prune_rules_for_mesh(
+            mesh, dict(self.SERVE_RULES, **(rules or {})))
+        shd.place(mesh, self._model, self._model.logical_axes(), rules)
+        return rules
+
+    @property
+    def is_leader(self) -> bool:
+        """Whether this rank schedules (rank 0 of the tp group)."""
+        return self.rank == 0
+
+    def _leader_only(self, what: str) -> None:
+        if not self.is_leader:
+            raise RuntimeError(
+                f"{what}: rank {self.rank} of the tp group follows rank 0, "
+                "which alone takes requests and schedules")
+
+    def _broadcast(self, msg=None):
+        """``msg`` from rank 0 to the tp group (rank 0 passes it, the
+        others get it)."""
+        sh = self._shards
+        group = sh.mesh.get_group(sh.axis)
+        box = [msg]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                                   group=group)
+        return box[0]
+
+    def _collective(self, op: str, *args):
+        """Run cache operation ``op`` on ``args`` (host values) here and,
+        under tp, on every rank: rank 0 broadcasts it first."""
+        if self.tp > 1:
+            self._broadcast((op, args))
+        return self._apply(op, args)
+
+    def _apply(self, op: str, args):
+        if op == "block":
+            return self._run_block(*args)
+        if op == "copy":
+            src, dst = (self._h2d(np.asarray(a)) for a in args)
+            return llama.copy_pages(self._cache, src, dst)
+        if op == "write":
+            return self._write_local(*args)
+        if op == "gather":
+            return self._gather_local(*args)
+        raise ValueError(f"unknown cache operation {op!r}")
+
+    def follow(self) -> None:
+        """The loop of every rank but 0 under tp: replay rank 0's cache
+        operations, in its order, until rank 0's engine stops."""
+        if self.is_leader:
+            raise RuntimeError("rank 0 schedules; it does not follow")
+        with self._on_device():
+            while True:
+                op, args = self._broadcast()
+                if op == "stop":
+                    return
+                self._apply(op, args)
+
+    def _stop_followers(self) -> None:
+        if self.tp > 1 and self.is_leader and not self._followers_stopped:
+            self._followers_stopped = True
+            with self._on_device():
+                self._broadcast(("stop", ()))
+
     # -- public API --------------------------------------------------------
 
     def submit(self, prompt: Sequence[int], max_new: int = 64,
@@ -302,6 +433,7 @@ class SlotEngine:
                on_token: Optional[Callable[[Optional[int]], None]] = None,
                seed: Optional[int] = None,
                session_id: Optional[str] = None) -> RequestHandle:
+        self._leader_only("submit")
         prompt = np.asarray(prompt, dtype=np.int32)
         if prompt.ndim != 1 or len(prompt) == 0:
             raise ValueError("prompt must be a non-empty 1D token list")
@@ -339,24 +471,37 @@ class SlotEngine:
         return handle
 
     def start(self) -> "SlotEngine":
+        """Run the scheduler on a thread (rank 0), or the follower loop
+        (the other ranks under tp)."""
         if self._thread is None:
-            self._thread = threading.Thread(target=self._run,
-                                            name="llm-engine", daemon=True)
+            self._thread = threading.Thread(
+                target=self._run if self.is_leader else self.follow,
+                name="llm-engine", daemon=True)
             self._thread.start()
         return self
 
     def stop(self) -> None:
+        if not self.is_leader:
+            # The follower loop ends when rank 0's engine stops.
+            if self._thread is not None:
+                self._thread.join(timeout=30)
+                self._thread = None
+            return
         with self._work:
             self._stop = True
             self._work.notify()
+        stuck = False
         if self._thread is not None:
             self._thread.join(timeout=30)
+            stuck = self._thread.is_alive()
             self._thread = None
         # Whether or not a thread ever ran, no caller may be left hanging:
         # flush queued control ops and fail every registered request.
         with self._lock:
             self._drain_control_locked()
             self._fail_all_locked(EngineStoppedError("engine stopped"))
+        if not stuck:  # no operation is in flight: release the followers
+            self._stop_followers()
 
     def warmup(self) -> None:
         """Run one short request through both programs (the fused and the
@@ -422,6 +567,7 @@ class SlotEngine:
     def _run_control(self, fn, timeout: float = 60.0):
         """Run ``fn`` under the engine lock ON THE ENGINE THREAD at a step
         boundary; with no engine thread running the caller runs it."""
+        self._leader_only("a session operation")
         thread = self._thread
         if (thread is None or not thread.is_alive()
                 or thread is threading.current_thread()):
@@ -472,8 +618,7 @@ class SlotEngine:
         frames = None
         if pages:
             # Pages stay index-owned: we hold the lock, so no eviction.
-            frames = tensor_to_numpy(
-                self._cache["kv"][:, :, self._h2d(np.asarray(pages))])
+            frames = self._collective("gather", list(pages))
         return {
             "session_id": session_id,
             "transcript": np.asarray(transcript, dtype=np.int32),
@@ -506,6 +651,7 @@ class SlotEngine:
         fresh: List[int] = []
         if self._radix is not None and n_chunks > 0 and frames is not None:
             kv_shape = tuple(self._cache["kv"].shape)
+            kv_shape = kv_shape[:4] + (self.cfg.num_kv_heads,) + kv_shape[5:]
             if (tuple(frames.shape[:2]) != kv_shape[:2]
                     or tuple(frames.shape[3:]) != kv_shape[3:]):
                 raise ValueError(
@@ -537,11 +683,27 @@ class SlotEngine:
                 "tokens_resident": (len(matched) + len(fresh)) * ps}
 
     def _write_frames_locked(self, pages: List[int], frames) -> None:
-        """Write host KV frames [L, 2, N, ...] (numpy of any float dtype,
-        the JAX package's bf16 included, or a tensor) into ``pages``."""
+        """Write host KV frames [L, 2, N, ..., Hkv, hd] (numpy of any
+        float dtype, the JAX package's bf16 included, or a tensor) into
+        ``pages``; under tp each rank writes its own heads."""
         vals = frames if torch.is_tensor(frames) else tensor_from_numpy(
             frames)
-        llama.write_pages(self._cache, self._h2d(np.asarray(pages)), vals)
+        self._collective("write", list(pages), vals.cpu())
+
+    def _write_local(self, pages: List[int], frames) -> None:
+        h = self._cache["kv"].shape[4]
+        llama.write_pages(self._cache, self._h2d(np.asarray(pages)),
+                          frames[:, :, :, :, self.rank * h:(self.rank + 1) * h])
+
+    def _gather_local(self, pages: List[int]) -> np.ndarray:
+        """The whole frames of ``pages`` [L, 2, N, page_size, Hkv, hd]
+        (fp32 numpy): under tp every rank's heads, gathered."""
+        frames = self._cache["kv"][:, :, self._h2d(np.asarray(pages))]
+        if self.tp > 1:
+            with shd.use_mesh(self._shards.mesh):
+                frames = all_gather(frames, self._shards.axis, axis=4,
+                                    tiled=True)
+        return tensor_to_numpy(frames)
 
     def prefill_session(self, session_id: str, transcript,
                         seed=None, temperature: float = 0.0,
@@ -701,8 +863,7 @@ class SlotEngine:
             # Copy-on-write: reuse the borrowed page's first n tokens in
             # this slot's own fresh page, then drop the temporary borrow.
             src, n_tok = partial
-            llama.copy_pages(self._cache, self._h2d(np.asarray([src])),
-                             self._h2d(np.asarray([fresh[0]])))
+            self._collective("copy", [src], [fresh[0]])
             self._pool.unref(src)
             s.matched_len += n_tok
         self._tables[idx, :n_total] = s.pages
@@ -721,6 +882,7 @@ class SlotEngine:
     def step(self) -> bool:
         """One scheduler iteration: admit, dispatch a block, then fetch the
         PREVIOUS block's tokens (lag-1). Returns True if any work ran."""
+        self._leader_only("step")
         with self._on_device():
             return self._step()
 
@@ -782,7 +944,7 @@ class SlotEngine:
         for _ in range(k):
             logits, _ = llama.decode_slots_paged(
                 self._model, self._cache, inp["tables"], toks, pos,
-                self.page_size)
+                self.page_size, self._rules)
             pos = pos + 1
             toks = sampling.sample(logits, inp["temps"], inp["seeds"], pos)
             out.append(toks)
@@ -803,7 +965,7 @@ class SlotEngine:
                 llama.decode_slots_with_prefill_paged(
                     self._model, self._cache, inp["tables"], tokens0, pos,
                     inp["pre_tokens"], inp["pre_slot"], inp["pre_p0"],
-                    inp["pre_n_valid"], self.page_size)
+                    inp["pre_n_valid"], self.page_size, self._rules)
             pos = pos + 1
             tok1 = sampling.sample(dec_logits, inp["temps"], inp["seeds"],
                                    pos)
@@ -860,7 +1022,7 @@ class SlotEngine:
     def _run_block(self, host: dict, fused: bool):
         """Launch one block on host inputs; returns its flat tokens on the
         device."""
-        if not self._cuda:
+        if not self._graphable:
             inp = {n: self._h2d(a) for n, a in host.items()}
             inp["last"] = self._last_dev
             return self._block_fn(inp, fused)
@@ -918,7 +1080,7 @@ class SlotEngine:
                         pre_n_valid=np.asarray([len(piece)], np.int64),
                         pre_temp=np.asarray([s.temperature], np.float32),
                         pre_seed=np.asarray([s.seed], np.int32))
-        flat = self._run_block(host, prefill_idx is not None)
+        flat = self._collective("block", host, prefill_idx is not None)
         for i, s in active:
             s.pos += self.decode_block
             s.on_device_chain = True
@@ -990,15 +1152,17 @@ class SlotEngine:
 
     def decode_profile(self) -> dict:
         """Achieved-vs-peak HBM accounting for the decode loop: bytes a
-        step must stream (params + the KV pages live slots attend) over
-        host wall time of steady pipeline intervals, against one H100's
-        3350 GB/s."""
+        step must stream on every rank (params + the KV pages live slots
+        attend) over host wall time of steady pipeline intervals, against
+        tp H100s at 3350 GB/s each (``devices`` = tp; ranks that share
+        one card still count one roof each)."""
         steps, wall = self._prof_steps, self._prof_wall
+        hbm_gbps = H100_HBM_GBPS * self.tp
         if steps == 0 or wall <= 0.0:
             return {"steps": 0, "wall_s": 0.0, "avg_step_ms": 0.0,
                     "steps_per_s": 0.0, "bytes_per_step": 0,
-                    "achieved_gbps": 0.0, "hbm_gbps": H100_HBM_GBPS,
-                    "devices": 1, "roofline_frac": 0.0}
+                    "achieved_gbps": 0.0, "hbm_gbps": hbm_gbps,
+                    "devices": self.tp, "roofline_frac": 0.0}
         achieved_gbps = self._prof_bytes / wall / 1e9
         return {
             "steps": steps,
@@ -1007,9 +1171,9 @@ class SlotEngine:
             "steps_per_s": round(steps / wall, 2),
             "bytes_per_step": int(self._prof_bytes / steps),
             "achieved_gbps": round(achieved_gbps, 4),
-            "hbm_gbps": H100_HBM_GBPS,
-            "devices": 1,
-            "roofline_frac": achieved_gbps / H100_HBM_GBPS,
+            "hbm_gbps": hbm_gbps,
+            "devices": self.tp,
+            "roofline_frac": achieved_gbps / hbm_gbps,
         }
 
     def _deliver(self, idx: int, s: _Slot, tok: int) -> None:

@@ -10,10 +10,14 @@ Responses: ``{"tokens": [...], "finish_reason": ..., "prompt_len": N,
 "timing": {...}}`` (``timing`` is the engine's per-request stage
 breakdown), or, with ``stream: true``, an async iterator of token ids.
 
+``tp > 1`` shards the engine over a tp mesh of the initialised process
+group (one process a rank, as ``parallel.bootstrap`` starts them): every
+rank constructs the server, rank 0 answers requests and the others run
+the engine's follower loop.
+
 Not ported: ``build_llm_app``, which wraps the server in the JAX
 package's Serve runtime, and the trace context a Serve replica hands the
-engine (ROADMAP Queue A item 5); ``checkpoint_path`` (item 8) and
-``tp > 1`` (item 7) raise.
+engine (ROADMAP Queue A item 5); ``checkpoint_path`` (item 8) raises.
 """
 
 from __future__ import annotations
@@ -54,6 +58,28 @@ def _build_params(model: str, seed: int,
     return m.to(cfg.dtype).requires_grad_(False), cfg
 
 
+def _tp_mesh(tp: int, device):
+    """(this rank's device, ``MeshSpec(tp=tp)``'s mesh) over the
+    initialised process group, which must have tp ranks; on the card each
+    rank takes the card of its rank, and there must be tp of them."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import MeshSpec
+
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    if ranks < tp:
+        raise ValueError(f"tp={tp} needs {tp} ranks, have {ranks} (an "
+                         "initialised process group of tp processes)")
+    dev = default_device(device)
+    if dev.type == "cuda":
+        if torch.cuda.device_count() < tp:
+            raise ValueError(f"tp={tp} needs {tp} devices, have "
+                             f"{torch.cuda.device_count()}")
+        dev = torch.device("cuda", dist.get_rank())
+        torch.cuda.set_device(dev)
+    return dev, MeshSpec(tp=tp).build(dev.type)
+
+
 class LLMServer:
     """One engine per server, asyncio request plane: the engine thread
     drives the card; handlers only bridge tokens into the caller's event
@@ -69,9 +95,9 @@ class LLMServer:
                  queue_timeout_s: Optional[float] = 30.0,
                  decode_block: int = 1, tp: int = 1,
                  params: Optional[Mapping] = None, device=None):
+        mesh = None
         if tp > 1:
-            raise NotImplementedError(
-                "tp > 1 (tensor-sharded serving) is ROADMAP Queue A item 7")
+            device, mesh = _tp_mesh(tp, device)
         module, _ = _build_params(model, seed, checkpoint_path, params,
                                   device)
         self.default_max_tokens = default_max_tokens
@@ -85,8 +111,9 @@ class LLMServer:
                                  max_pending=max_pending,
                                  queue_timeout_s=queue_timeout_s,
                                  decode_block=decode_block,
-                                 device=module.wte.device)
-        self.engine.warmup()
+                                 mesh=mesh, device=module.wte.device)
+        if self.engine.is_leader:
+            self.engine.warmup()
         self.engine.start()
         self._recoveries: list = []  # crash-path restore latencies (ms)
 
@@ -97,6 +124,7 @@ class LLMServer:
             pass
 
     async def __call__(self, payload):
+        self.engine._leader_only("a request")
         if not isinstance(payload, dict) or "prompt" not in payload:
             return {"error": "body must be JSON with a 'prompt' "
                              "token-id list"}

@@ -24,8 +24,8 @@ stacked ``[L, ...]`` by ``stack_layers`` and sharded over pp, a stage
 holding its own) and the chunked loss. Without a mesh the same code runs
 on plain tensors. MoE blocks (``num_experts`` > 0) replace the dense MLP
 with a top-k routed mixture and add ``moe_aux_weight * aux /
-num_layers`` to the loss; they run without remat, and not under pp (the
-JAX package refuses pp with MoE too).
+num_layers`` to the loss; they do not run under pp (the JAX package
+refuses pp with MoE too).
 
 Remat (``remat_policy``) keeps the saved set of the JAX package's policy
 of the same name and recomputes the rest of the block in the backward,
@@ -38,15 +38,28 @@ tensor it makes (the JAX package's ``checkpoint_name`` tags):
   mlp_in   ln2 and the first MLP product
   mlp_out  tanh-GELU and the second MLP product
 
-A policy keeps the outputs of some parts (``REMAT_KEEPS``). The block is
-cut after each kept part; each run of parts between cuts is one
-checkpointed region, whose inputs are all it holds for the backward, so
-what a region keeps is visible to ``saved_tensors_hooks``. A kept
-attention runs outside any region: its autograd node holds q, k, v (the
-``qkv`` tag, in head layout), o and lse, and K1 is not run again in the
-backward. In a recompute, the last part of a region skips its product:
-its output is read by no backward, as XLA drops it from the JAX
-package's recompute.
+A MoE block (``parallel/moe.py``) has no ``mlp_in``; its first three parts
+are the dense block's, then:
+
+  router    ln2 and the router product (logits, fp32)
+  aux       the load-balance loss of the routing
+  route     top-k routing to fixed-capacity slots (dispatch and combine)
+  dispatch  ln2 again and the dispatch product (tokens to expert slots)
+  experts   the expert products (all_to_all over ep around them)
+  combine   the combine product (expert slots back to tokens)
+
+A policy keeps the outputs of some parts (``REMAT_KEEPS``,
+``MOE_REMAT_KEEPS``). The block is cut after each kept part; each run of
+parts between cuts is one checkpointed region, whose inputs are all it
+holds for the backward, so what a region keeps is visible to
+``saved_tensors_hooks``. A kept attention runs outside any region: its
+autograd node holds q, k, v (the ``qkv`` tag, in head layout), o and
+lse, and K1 is not run again in the backward. Routing is never held
+across a cut: a region that reads it routes again from the router's
+logits, as the JAX package's backward does. In a recompute, the last part
+of a region skips its product: its output is read by no backward, as XLA
+drops it from the JAX package's recompute. Under a mesh the MoE parts of
+a region run in one ``smap`` region on each rank's tokens.
 """
 
 from __future__ import annotations
@@ -127,10 +140,6 @@ def _check_supported(cfg: GPT2Config) -> None:
     if cfg.remat_policy != "none" and cfg.remat_policy not in REMAT_KEEPS:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; one "
                          f"of none, {', '.join(REMAT_KEEPS)}")
-    if cfg.num_experts > 0 and cfg.remat_policy != "none":
-        raise NotImplementedError(
-            "MoE blocks run with remat_policy='none': the remat policies "
-            "cut the dense block's five parts (ROADMAP Queue A item 7c)")
 
 
 def block_logical_axes(cfg: GPT2Config) -> Dict[str, tuple]:
@@ -183,46 +192,21 @@ def _attend(q, k, v, cfg: GPT2Config, rules):
     return body(q, k, v)
 
 
-def _moe_ffn(y, block: "Block", cfg: GPT2Config, rules):
-    """The MoE FFN of one block (``parallel/moe.py``); returns (out, aux).
-
-    With an ``ep`` axis of size > 1 each ep rank routes its own token shard
-    (the batch rule must include ``ep``) and the experts are sharded over
-    ep; aux is averaged over every mesh axis. Otherwise every token is
-    routed together (``axis_name=None``), as the JAX package does without
-    an ep axis: under a mesh the whole batch runs on every rank.
-    """
-    from ..parallel.collective import pmean
-    from ..parallel.moe import moe_ffn_local
-
-    mesh = current_mesh()
-    ep = "ep"
-    have_ep = is_dtensor(y) and mesh_sizes(mesh).get(ep, 1) > 1
-    kw = dict(num_experts=cfg.num_experts, top_k=cfg.moe_top_k,
-              capacity_factor=cfg.moe_capacity_factor)
-
-    def body(yb, rw, wi, wo):
-        bb, sb, dd = yb.shape
-        out, aux = moe_ffn_local(yb.reshape(bb * sb, dd), rw, wi, wo,
-                                 axis_name=ep if have_ep else None, **kw)
-        if have_ep:
-            aux = pmean(aux, tuple(mesh.mesh_dim_names))
-        return out.reshape(bb, sb, dd), aux
-
-    weights = (block.router_w, block.moe_in_w, block.moe_out_w)
-    if not is_dtensor(y):
-        return body(y, *weights)
-    x_spec = spec_for(("batch", "seq", None), rules) if have_ep else P()
-    w_spec = spec_for(("expert",), rules) if have_ep else P()
-    return smap(body, mesh, in_specs=(x_spec, P(), w_spec, w_spec),
-                out_specs=(x_spec, P()))(y, *weights)
-
-
-# The parts of a block in order, with the earlier outputs each one reads
-# ("x" is the block's input). The block returns proj + mlp_out.
+# The parts of a block, with the earlier outputs each one reads ("x" is
+# the block's input). A dense block returns proj + mlp_out, a MoE block
+# proj + combine (and aux).
 _READS = {"qkv": ("x",), "attn": ("qkv",), "proj": ("x", "attn"),
-          "mlp_in": ("proj",), "mlp_out": ("mlp_in",)}
-_PART_NAMES = tuple(_READS)
+          "mlp_in": ("proj",), "mlp_out": ("mlp_in",),
+          "router": ("proj",), "aux": ("router",), "route": ("router",),
+          "dispatch": ("proj", "route"), "experts": ("dispatch",),
+          "combine": ("route", "experts")}
+_PART_NAMES = ("qkv", "attn", "proj", "mlp_in", "mlp_out")
+_MOE_PARTS = ("router", "aux", "route", "dispatch", "experts", "combine")
+_MOE_PART_NAMES = _PART_NAMES[:3] + _MOE_PARTS
+# The weights each MoE part reads.
+_MOE_WEIGHTS = {"router": ("ln2_scale", "ln2_bias", "router_w"),
+                "dispatch": ("ln2_scale", "ln2_bias"),
+                "experts": ("moe_in_w", "moe_out_w")}
 
 # Parts whose outputs each policy keeps for the backward; the rest is
 # recomputed. As ``ray_tpu/models/gpt2.py`` forward_features: "dots" keeps
@@ -239,15 +223,36 @@ REMAT_KEEPS: Dict[str, frozenset] = {
 }
 
 
-def _regions(keep: frozenset):
-    """The runs of parts between cuts: a cut follows each kept part."""
+# The MoE block's saved sets, as JAX's saved residuals of the same block
+# (``jax.ad_checkpoint.print_saved_residuals``): "dots" keeps the qkv and
+# proj products, the router's logits and the dispatch product (tokens to
+# slots), the products without a batch dimension; the expert products
+# (batch dimension e) and routing are recomputed, and the combine
+# product's output is read by no backward. "dots_attn" adds attention;
+# "mem" and "mem2" keep qkv and attention (a MoE block has no mlp_in).
+MOE_REMAT_KEEPS: Dict[str, frozenset] = {
+    "full": frozenset(),
+    "dots": frozenset({"qkv", "proj", "router", "dispatch"}),
+    "dots_attn": frozenset({"qkv", "attn", "proj", "router", "dispatch"}),
+    "mem": frozenset({"qkv", "attn"}),
+    "mem2": frozenset({"qkv", "attn"}),
+}
+
+
+def _regions(keep: frozenset, parts=_PART_NAMES):
+    """The runs of parts between cuts: a cut follows each kept part. A
+    run that reads the routing without computing it routes again."""
     runs, run = [], []
-    for name in _PART_NAMES:
+    for name in parts:
         run.append(name)
-        if name in keep or name == _PART_NAMES[-1]:
-            runs.append(tuple(run))
+        if name in keep or name == parts[-1]:
+            runs.append(run)
             run = []
-    return runs
+    for run in runs:
+        readers = [i for i, n in enumerate(run) if "route" in _READS[n]]
+        if readers and "route" not in run:
+            run.insert(readers[0], "route")
+    return [tuple(run) for run in runs]
 
 
 def _inputs(run):
@@ -297,6 +302,41 @@ class _Dense(torch.autograd.Function):
         g2 = g.reshape(-1, g.shape[-1])
         dw = y.reshape(-1, y.shape[-1]).t() @ g2
         return g @ w.t(), dw, g2.sum(0), None
+
+
+class _Einsum(torch.autograd.Function):
+    """``torch.einsum(eq, a, b)`` inside a checkpointed region. Saves a and
+    b; with ``skip`` (a region's last product, in its recompute) the output
+    is left uncomputed. Every index of an operand is in the other operand
+    or the output, so each gradient is one einsum."""
+
+    @staticmethod
+    def forward(ctx, eq, a, b, skip: bool):
+        ctx.eq = eq
+        ctx.save_for_backward(a, b)
+        if skip:
+            (sa, sb), out = eq.split("->")[0].split(","), eq.split("->")[1]
+            size = dict(zip(sa, a.shape)) | dict(zip(sb, b.shape))
+            return a.new_empty([size[c] for c in out])
+        return torch.einsum(eq, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ins, out = ctx.eq.split("->")
+        sa, sb = ins.split(",")
+        ga = (torch.einsum(f"{out},{sb}->{sa}", g, b)
+              if ctx.needs_input_grad[1] else None)
+        gb = (torch.einsum(f"{sa},{out}->{sb}", a, g)
+              if ctx.needs_input_grad[2] else None)
+        return None, ga, gb, None
+
+
+def _product(eq, a, b, skip: Optional[bool]):
+    """``torch.einsum(eq, a, b)``; ``skip`` None outside a region."""
+    if skip is None:
+        return torch.einsum(eq, a, b)
+    return _Einsum.apply(eq, a, b, skip)
 
 
 class Block(nn.Module):
@@ -371,29 +411,119 @@ class Block(nn.Module):
         """Parts ``run`` from their inputs (``tensors``, named as
         ``_inputs(run)``); returns the named ``outputs``. Under ``rc`` the
         run is a checkpointed region and its last product is skipped in
-        the recompute."""
+        the recompute. The MoE parts, last in a run, run together
+        (``_moe_parts``)."""
         env = dict(zip(_inputs(run), tensors))
-        for name in run:
+        moe = [n for n in run if n in _MOE_PARTS]
+        for name in run[:len(run) - len(moe)]:
             skip = None if rc is None else (rc.active and name == run[-1])
             env[name] = self._part(name, [env[i] for i in _READS[name]],
                                    skip, rules)
+        if moe:
+            skip = None if rc is None else rc.active
+            env.update(self._moe_parts(tuple(moe), env, outputs, skip,
+                                       rules))
         return tuple(env[n] for n in outputs)
 
+    def _moe_parts(self, run, env, outputs, skip_last, rules):
+        """MoE parts ``run`` on ``env``; returns those of ``outputs`` they
+        make. Under a mesh they run in one ``smap`` region: with an ``ep``
+        axis each rank routes its own (batch, seq) shard of the tokens
+        (the batch rule must include ep) to experts sharded over ep, and
+        aux is averaged over the mesh; otherwise every rank routes the
+        whole batch together (``axis_name=None``), as the JAX package does
+        without an ep axis."""
+        from ..parallel.collective import pmean
+        from ..parallel.moe import (expert_ffn, load_balance_loss, route,
+                                    router_topk)
+
+        cfg = self.cfg
+        e, k = cfg.num_experts, cfg.moe_top_k
+        ins = _inputs(run)
+        outs = tuple(n for n in run if n in outputs)
+        wnames = tuple(dict.fromkeys(
+            w for n in run for w in _MOE_WEIGHTS.get(n, ())))
+        mesh = current_mesh()
+        sharded = is_dtensor(env[ins[0]])
+        have_ep = sharded and mesh_sizes(mesh).get("ep", 1) > 1
+
+        def part(name, inputs, w, skip):
+            if name == "router":
+                (x,) = inputs
+                y = layer_norm(x, w["ln2_scale"], w["ln2_bias"])
+                return _product("bsd,de->bse", y.float(),
+                                w["router_w"].float(), skip)
+            if name == "aux":
+                (logits,) = inputs
+                _, idx, probs = router_topk(logits.reshape(-1, e), k)
+                aux = load_balance_loss(probs, idx, e)
+                return (pmean(aux, tuple(mesh.mesh_dim_names)) if have_ep
+                        else aux)
+            if name == "route":
+                (logits,) = inputs
+                b, s, _ = logits.shape
+                return tuple(t.reshape(b, s, e, -1) for t in route(
+                    logits.reshape(b * s, e), e, k, cfg.moe_capacity_factor))
+            if name == "dispatch":
+                x, (dispatch, _) = inputs
+                y = layer_norm(x, w["ln2_scale"], w["ln2_bias"])
+                return _product("bsec,bsm->ecm", dispatch, y.float(), skip)
+            if name == "experts":
+                (slots,) = inputs
+                return expert_ffn(slots, w["moe_in_w"], w["moe_out_w"],
+                                  "ep" if have_ep else None)
+            (_, combine), y = inputs
+            return _product("bsec,ecm->bsm", combine, y, skip).to(cfg.dtype)
+
+        def body(*args):
+            local = dict(zip(ins, args))
+            w = dict(zip(wnames, args[len(ins):]))
+            for name in run:
+                skip = (None if skip_last is None
+                        else skip_last and name == run[-1])
+                local[name] = part(name, [local[r] for r in _READS[name]],
+                                   w, skip)
+            return tuple(local[n] for n in outs)
+
+        args = [env[n] for n in ins] + [getattr(self, w) for w in wnames]
+        if not sharded:
+            return dict(zip(outs, body(*args)))
+        # Specs: tensors [B, S, ...] are split as the tokens, expert slots
+        # [E, C, m] are one block a rank (dim 0 over the tokens' axes),
+        # aux is replicated.
+        tok = spec_for(("batch", "seq", None), rules) if have_ep else P()
+        axes = set(spec_axes(tok))
+        slots = P(tuple(a for a in mesh.mesh_dim_names if a in axes) or None)
+        kind = {"aux": P(), "dispatch": slots, "experts": slots}
+        w_spec = spec_for(("expert",), rules) if have_ep else P()
+        in_specs = tuple(kind.get(n, tok) for n in ins) + tuple(
+            w_spec if w.startswith("moe_") else P() for w in wnames)
+        res = smap(body, mesh, in_specs=in_specs,
+                   out_specs=tuple(kind.get(n, tok) for n in outs))(*args)
+        return dict(zip(outs, res))
+
     def forward(self, x, rules=None):
-        if self.cfg.num_experts > 0:
-            (x,) = self._run(("qkv", "attn", "proj"), ("proj",), None, rules,
-                             x)
-            y = layer_norm(x, self.ln2_scale, self.ln2_bias)
-            out, aux = _moe_ffn(y, self, self.cfg, rules)
-            return x + constrain(out, ("batch", "seq", None), rules), aux
+        moe = self.cfg.num_experts > 0
+        parts = _MOE_PART_NAMES if moe else _PART_NAMES
+        last = parts[-1]
         policy = self.cfg.remat_policy
-        runs = ([_PART_NAMES] if policy == "none"
-                else _regions(REMAT_KEEPS[policy]))
+        keeps = MOE_REMAT_KEEPS if moe else REMAT_KEEPS
+        runs = ([parts] if policy == "none"
+                else _regions(keeps[policy], parts))
+        finals = {"proj", last, "aux"}
         env = {"x": x}
+        moe_in = None
         for i, run in enumerate(runs):
-            later = {r for nxt in runs[i + 1:] for n in nxt for r in _READS[n]}
-            outputs = tuple(n for n in run if n in later | {"proj", "mlp_out"})
-            ins = [env[n] for n in _inputs(run)]
+            later = {n for nxt in runs[i + 1:] for n in _inputs(nxt)}
+            outputs = tuple(n for n in run if n in later | finals)
+            if moe and moe_in is None and "proj" in env:
+                # Regions after the cut read the MoE branch's input through
+                # one view, whose gradient is their sum before the
+                # residual's is added: the order of the bf16 sums stays
+                # the one without remat.
+                moe_in = env["proj"].view_as(env["proj"])
+            ins = [moe_in if n == "proj" and moe_in is not None else env[n]
+                   for n in _inputs(run)]
             if policy == "none" or run == ("attn",):
                 # No remat, or a kept attention: _Flash's node holds q, k,
                 # v, o and lse.
@@ -404,7 +534,10 @@ class Block(nn.Module):
                                   use_reentrant=False,
                                   context_fn=rc.contexts)
             env.update(zip(outputs, outs))
-        return env["proj"] + env["mlp_out"], 0.0
+        if not moe:
+            return env["proj"] + env["mlp_out"], 0.0
+        out = constrain(env["combine"], ("batch", "seq", None), rules)
+        return env["proj"] + out, env["aux"]
 
 
 class GPT2(nn.Module):

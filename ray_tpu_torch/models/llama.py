@@ -37,14 +37,32 @@ The cache attention is plain PyTorch, as the JAX package's is XLA gather
 and einsum (no Pallas kernel): scores are the exact product of the
 16-bit operands accumulated in fp32 (the gathered view is upcast, which
 is exact), masked with -1e30, softmax in fp32, probabilities cast to the
-cache dtype before P·V. Sharding rules (``rules``) are ROADMAP Queue A
-item 7 and raise.
+cache dtype before P·V.
+
+Sharding rules (``rules``), on parameters placed as DTensors by
+``parallel.sharding.place`` with ``Llama.logical_axes()``:
+
+- ``forward``/``loss_fn`` constrain at the JAX package's three sites and
+  run attention (rope, the grouping of query heads onto KV heads, the
+  kernels) on each rank's heads inside an ``smap`` region, as GPT-2 does;
+- the paged functions run on each rank's local shards (``_Shards``)
+  under rules that map "qkv", "kv", "mlp" and "vocab" to one mesh axis,
+  tp (``SlotEngine.SERVE_RULES``): rank r holds H/tp query heads, Hkv/tp
+  KV heads (of every layer and every page), d_mlp/tp columns of the gate
+  and up products and rows of ``w_down``, and vocab/tp rows of ``wte``.
+  The ``wo`` and ``w_down`` products and the embedding lookup (each rank
+  its own vocab rows, zeros elsewhere) are summed over tp in fp32, and the
+  LM head's vocab shards are gathered, so every rank samples from the
+  whole row. Query head h reads KV head h // (H / Hkv): a rank's block of
+  query heads lines up with its block of KV heads because tp divides Hkv,
+  which ``_Shards`` checks.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable, Dict, Optional
 
 import torch
@@ -55,7 +73,12 @@ from torch.utils.checkpoint import checkpoint
 from ..device import default_device
 from .. import random as trandom
 from ..ops.attention import attention as attention_op
-from .common import cross_entropy_loss, lm_logits, rms_norm, truncated_normal
+from ..parallel.collective import all_gather, axis_index, axis_size, psum
+from ..parallel.sharding import (P, constrain, current_mesh, is_dtensor,
+                                 mesh_sizes, smap, spec_axes, spec_for,
+                                 use_mesh)
+from .common import (cross_entropy_loss, cross_entropy_sums, lm_logits,
+                     rms_norm, truncated_normal)
 
 _NEG = -1e30
 
@@ -92,15 +115,19 @@ CONFIGS: Dict[str, LlamaConfig] = {
 }
 
 # Logical axes of cache["kv"]: the heads axis shards under the "kv" rule
-# once sharded serving is ported (ROADMAP Queue A item 7).
+# (the serving engine maps it to tp).
 PAGED_KV_AXES = (None, None, None, None, "kv", None)
 
 
-def _check_rules(rules) -> None:
-    if rules is not None:
-        raise NotImplementedError(
-            "sharding rules (tp-sharded serving) are ROADMAP Queue A item 7;"
-            " the port runs on one device")
+def block_logical_axes() -> Dict[str, tuple]:
+    """Logical axes of one block's parameters: the JAX package's
+    ``param_axes()`` blocks without the leading "layers" (one module a
+    layer here)."""
+    return {"attn_norm": (None,), "wq": ("embed", "qkv"),
+            "wk": ("embed", "kv"), "wv": ("embed", "kv"),
+            "wo": ("qkv", "embed"), "ffn_norm": (None,),
+            "w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
 
 
 def _rope_tables(positions, head_dim: int, theta: float):
@@ -139,6 +166,90 @@ def _repeat_kv(x, n_rep: int):
     return torch.repeat_interleave(x, n_rep, dim=1)
 
 
+def _qkv(w, x, rot, heads: int, kv_heads: int):
+    """x [B, T, D] -> q [B, heads, T, hd], k and v [B, kv_heads, T, hd]
+    through one layer's weights ``w`` (a ``Block``, or one rank's shards of
+    one), q and k rotated by ``rot`` (``_rope_tables`` of the positions;
+    None leaves them unrotated)."""
+    b, t, _ = x.shape
+    hd = w.wk.shape[1] // kv_heads
+    y = rms_norm(x, w.attn_norm)
+    q = (y @ w.wq.to(y.dtype)).reshape(b, t, heads, hd).transpose(1, 2)
+    k = (y @ w.wk.to(y.dtype)).reshape(b, t, kv_heads, hd).transpose(1, 2)
+    v = (y @ w.wv.to(y.dtype)).reshape(b, t, kv_heads, hd).transpose(1, 2)
+    if rot is None:
+        return q, k, v
+    return _rotate(q, rot), _rotate(k, rot), v
+
+
+def _tp_sum(x, sh: Optional["_Shards"]):
+    """``x`` summed over the tp group of ``sh`` in fp32 (the partial
+    products of the row-parallel weights); ``x`` itself on one rank."""
+    if sh is None or sh.n == 1:
+        return x
+    with use_mesh(sh.mesh):
+        return psum(x.float(), sh.axis).to(x.dtype)
+
+
+def _attn_out(w, x, o, sh=None, rules=None):
+    """Residual add of the attention output o [B, T, heads * hd] through
+    ``wo`` (summed over tp under ``sh``)."""
+    out = _tp_sum(o @ w.wo.to(o.dtype), sh)
+    return x + constrain(out, ("batch", "seq", None), rules)
+
+
+def _ffn(w, x, sh=None, rules=None):
+    """Residual SwiGLU MLP (the ``w_down`` product summed over tp under
+    ``sh``)."""
+    y = rms_norm(x, w.ffn_norm)
+    gate = F.silu(y @ w.w_gate.to(y.dtype))
+    up = y @ w.w_up.to(y.dtype)
+    hidden = constrain(gate * up, ("batch", "seq", "mlp"), rules)
+    out = _tp_sum(hidden @ w.w_down.to(y.dtype), sh)
+    return x + constrain(out, ("batch", "seq", None), rules)
+
+
+def _first_head(spec) -> int:
+    """Inside an smap body: the position, among the ranks dim 1 of
+    ``spec`` is split over, of this rank's block of heads."""
+    entry = spec[1] if len(spec) > 1 else None
+    i = 0
+    for a in () if entry is None else (
+            (entry,) if isinstance(entry, str) else entry):
+        i = i * axis_size(a) + axis_index(a)
+    return i
+
+
+def _causal_attention(q, k, v, rot, group: int, rules):
+    """The training path's attention: q [B, H, S, hd] and k, v [B, Hkv, S,
+    hd] projected, not yet rotated; returns [B, H, S, hd]. Rope on q and k,
+    query head h reads KV head h // ``group``, then the causal kernels (K1
+    forward, K2/K3 under autograd; their plain versions on the CPU).
+    DTensors run in an ``smap`` region on the heads each rank holds ("heads"
+    for q, "kv" for k and v)."""
+    sharded = is_dtensor(q)
+    qs = spec_for(("batch", "heads", None, None), rules)
+    ks = spec_for(("batch", "kv", None, None), rules)
+
+    def body(q, k, v, cos, sin):
+        q, k = _rotate(q, (cos, sin)), _rotate(k, (cos, sin))
+        hq, hk = q.shape[1], k.shape[1]
+        q0, k0 = ((_first_head(qs) * hq, _first_head(ks) * hk) if sharded
+                  else (0, 0))
+        if q0 // group < k0 or (q0 + hq - 1) // group >= k0 + hk:
+            raise ValueError(
+                f"query heads [{q0}, {q0 + hq}) read KV heads this rank "
+                f"does not hold ([{k0}, {k0 + hk}))")
+        idx = (q0 + torch.arange(hq, device=q.device)) // group - k0
+        return attention_op(q.contiguous(), k.index_select(1, idx),
+                            v.index_select(1, idx), causal=True)
+
+    if sharded:
+        return smap(body, current_mesh(), in_specs=(qs, ks, ks, P(), P()),
+                    out_specs=qs)(q, k, v, *rot)
+    return body(q, k, v, *rot)
+
+
 class Block(nn.Module):
     """One pre-norm Llama block (``_block`` in the JAX package)."""
 
@@ -163,33 +274,17 @@ class Block(nn.Module):
     def qkv(self, x, rot):
         """x [B, T, D] -> q [B, H, T, hd], k and v [B, Hkv, T, hd], q and
         k rotated by ``rot`` (``_rope_tables`` of the positions)."""
-        b, t, _ = x.shape
-        cfg = self.cfg
-        h, hd, hkv = cfg.num_heads, cfg.head_dim, cfg.num_kv_heads
-        y = rms_norm(x, self.attn_norm)
-        q = (y @ self.wq.to(y.dtype)).reshape(b, t, h, hd).transpose(1, 2)
-        k = (y @ self.wk.to(y.dtype)).reshape(b, t, hkv, hd).transpose(1, 2)
-        v = (y @ self.wv.to(y.dtype)).reshape(b, t, hkv, hd).transpose(1, 2)
-        return _rotate(q, rot), _rotate(k, rot), v
+        return _qkv(self, x, rot, self.cfg.num_heads, self.cfg.num_kv_heads)
 
-    def attn_out(self, x, o):
-        """Residual add of the attention output o [B, T, D]."""
-        return x + o @ self.wo.to(o.dtype)
-
-    def ffn(self, x):
-        """Residual SwiGLU MLP."""
-        y = rms_norm(x, self.ffn_norm)
-        gate = F.silu(y @ self.w_gate.to(y.dtype))
-        up = y @ self.w_up.to(y.dtype)
-        return x + (gate * up) @ self.w_down.to(y.dtype)
-
-    def forward(self, x, rot):
+    def forward(self, x, rot, rules=None):
         b, s, d = x.shape
-        n_rep = self.cfg.num_heads // self.cfg.num_kv_heads
-        q, k, v = self.qkv(x, rot)
-        o = attention_op(q.contiguous(), _repeat_kv(k, n_rep).contiguous(),
-                         _repeat_kv(v, n_rep).contiguous(), causal=True)
-        return self.ffn(self.attn_out(x, o.transpose(1, 2).reshape(b, s, d)))
+        cfg = self.cfg
+        q, k, v = _qkv(self, x, None, cfg.num_heads, cfg.num_kv_heads)
+        o = _causal_attention(q, k, v, rot,
+                              cfg.num_heads // cfg.num_kv_heads, rules)
+        x = _attn_out(self, x, o.transpose(1, 2).reshape(b, s, d),
+                      rules=rules)
+        return _ffn(self, x, rules=rules)
 
 
 class Llama(nn.Module):
@@ -208,39 +303,179 @@ class Llama(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.final_norm = nn.Parameter(torch.ones(cfg.d_model, device=dev))
 
-    def forward(self, tokens, rules=None):
-        """tokens [B, S] -> fp32 logits [B, S, vocab] (training/prefill).
+    def logical_axes(self) -> Dict[str, tuple]:
+        """Logical axes of every parameter, by name: the JAX package's
+        ``param_axes()``, a block's without the "layers" dim."""
+        axes = {"wte": ("vocab", "embed"), "final_norm": (None,)}
+        for name, ax in block_logical_axes().items():
+            for i in range(self.cfg.num_layers):
+                axes[f"blocks.{i}.{name}"] = ax
+        return axes
+
+    def forward_features(self, tokens, rules=None):
+        """tokens [B, S] -> final-normed hidden states [B, S, D].
         ``cfg.remat`` recomputes each block in the backward, and only when
         gradients are being taken."""
-        _check_rules(rules)
         cfg = self.cfg
-        x = self.wte[tokens].to(cfg.dtype)
+        x = _embed_lookup(self.wte, tokens, rules).to(cfg.dtype)
         rot = _rot(torch.arange(tokens.shape[1], device=tokens.device), cfg)
         remat = cfg.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = (checkpoint(block, x, rot, use_reentrant=False)
-                 if remat else block(x, rot))
-        x = rms_norm(x, self.final_norm)
-        return lm_logits(x, self.wte.to(cfg.dtype))
+            x = (checkpoint(block, x, rot, rules, use_reentrant=False)
+                 if remat else block(x, rot, rules))
+        return rms_norm(x, self.final_norm)
+
+    def forward(self, tokens, rules=None):
+        """tokens [B, S] -> fp32 logits [B, S, vocab] (training/prefill);
+        vocab-sharded under a mesh."""
+        x = self.forward_features(tokens, rules)
+        wte = self.wte.to(self.cfg.dtype)
+        if not is_dtensor(x):
+            return lm_logits(x, wte)
+        return smap(lm_logits, current_mesh(),
+                    in_specs=(spec_for(("batch", "seq", None), rules),
+                              spec_for(("vocab", None), rules)),
+                    out_specs=spec_for(("batch", "seq", "vocab"), rules))(
+            x, wte)
 
     def loss_fn(self, batch, rules=None):
+        """batch: {"tokens": [B, S+1]} -> mean next-token CE. Under a mesh
+        each rank takes its (batch, seq) shard against the whole table and
+        the sums are psummed over the axes that shard them."""
         tokens = batch["tokens"]
-        logits = self(tokens[:, :-1], rules)
-        return cross_entropy_loss(logits, tokens[:, 1:])[0]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        if not is_dtensor(self.wte):
+            return cross_entropy_loss(self(inputs), targets)[0]
+        x = self.forward_features(inputs, rules)
+        x_spec = spec_for(("batch", "seq", None), rules)
+        axes = spec_axes(x_spec)
+
+        def body(x, wte, t):
+            nll, count = cross_entropy_sums(lm_logits(x, wte), t)
+            return psum(nll, axes), psum(count, axes)
+
+        nll, count = smap(body, current_mesh(),
+                          in_specs=(x_spec, P(), spec_for(("batch", "seq"),
+                                                          rules)),
+                          out_specs=(P(), P()))(
+            x, self.wte.to(self.cfg.dtype), targets)
+        return nll / count.clamp_min(1.0)
 
 
-def _lm_head(x, model: Llama):
-    """[N, D] hidden states -> [N, vocab] fp32 logits."""
-    x = rms_norm(x, model.final_norm)
-    return lm_logits(x, model.wte.to(model.cfg.dtype))
+def _embed_lookup(wte, tokens, rules):
+    """``wte[tokens]``. On a mesh the table is gathered whole and each
+    rank looks up its (batch, seq) shard of the indices, as GPT-2's
+    ``_embed``."""
+    if not is_dtensor(wte):
+        return wte[tokens]
+    return smap(lambda w, t: w[t], current_mesh(),
+                in_specs=(P(), spec_for(("batch", "seq"), rules)),
+                out_specs=spec_for(("batch", "seq", None), rules))(
+        constrain(wte, (None, None), rules), tokens)
+
+
+class _Shards:
+    """The weights one rank applies in the cache functions: each block's
+    local tensors (``blocks``, attribute access as on a ``Block``),
+    ``wte`` and ``final_norm``, this rank's head counts (``h``, ``hkv``)
+    and first vocab row (``v0``), and under a tp group of ``n`` > 1 ranks
+    the ``mesh`` and ``axis`` its sums and gathers run over."""
+
+    def __init__(self, model: "Llama", rules=None):
+        cfg = model.cfg
+        self.dtype = cfg.dtype
+        self.mesh, self.axis, self.n, self.rank = None, None, 1, 0
+        if rules is not None and is_dtensor(model.wte):
+            self._join(model.wte.device_mesh, rules, cfg)
+        n = self.n
+        self.h, self.hkv = cfg.num_heads // n, cfg.num_kv_heads // n
+        if is_dtensor(model.wte):
+            local = lambda p: p.to_local() if is_dtensor(p) else p
+            self.blocks = [SimpleNamespace(**{
+                k: local(p) for k, p in blk.named_parameters()})
+                for blk in model.blocks]
+        else:
+            local = lambda p: p
+            self.blocks = list(model.blocks)
+        self.wte, self.final_norm = local(model.wte), local(model.final_norm)
+        self.v0 = self.rank * self.wte.shape[0]
+        hd, b0 = cfg.head_dim, self.blocks[0]
+        want = {"wte": ((cfg.vocab_size // n, cfg.d_model), self.wte.shape),
+                "wq": ((cfg.d_model, self.h * hd), b0.wq.shape),
+                "wk": ((cfg.d_model, self.hkv * hd), b0.wk.shape),
+                "w_down": ((cfg.d_mlp // n, cfg.d_model), b0.w_down.shape)}
+        for name, (shape, got) in want.items():
+            if tuple(got) != shape:
+                raise ValueError(
+                    f"{name} holds {tuple(got)} on this rank, not {shape}: "
+                    f"the parameters are not placed by the rules "
+                    f"(parallel.sharding.place with Llama.logical_axes())")
+
+    def _join(self, mesh, rules, cfg):
+        """Take the tp axis from ``rules``: "qkv", "kv", "mlp" and "vocab"
+        on one mesh axis, "embed" unsharded, no other axis of the mesh
+        larger than one."""
+        axes = {rules.get(a) for a in ("qkv", "kv", "mlp", "vocab")}
+        sizes = mesh_sizes(mesh)
+        axis = next(iter(axes))
+        others = [a for a, s in sizes.items() if s > 1 and a != axis]
+        if len(axes) != 1 or rules.get("embed") is not None or others:
+            raise ValueError(
+                "the cache functions shard over one mesh axis: rules must "
+                "map qkv, kv, mlp and vocab to it and leave embed unsharded "
+                f"(SlotEngine.SERVE_RULES), on a mesh with no other axis; "
+                f"got rules {rules} on {sizes}")
+        n = 1 if axis is None else sizes.get(axis, 1)
+        if n == 1:
+            return
+        if (cfg.num_kv_heads % n or cfg.num_heads % n or cfg.d_mlp % n
+                or cfg.vocab_size % n):
+            raise ValueError(
+                f"tp={n} must divide num_kv_heads ({cfg.num_kv_heads}), "
+                f"num_heads ({cfg.num_heads}), d_mlp ({cfg.d_mlp}) and "
+                f"vocab ({cfg.vocab_size})")
+        self.mesh, self.axis, self.n = mesh, axis, n
+        with use_mesh(mesh):
+            self.rank = axis_index(axis)
+
+
+def _shards(model: "Llama", rules=None) -> _Shards:
+    """``_Shards`` of ``model`` under ``rules``; kept on the model while
+    its parameters stay the same tensors."""
+    if rules is None or not is_dtensor(model.wte):
+        return _Shards(model)
+    key = (tuple(map(id, model.parameters())), tuple(sorted(rules.items())))
+    cached = model.__dict__.get("_shards")
+    if cached is None or cached[0] != key:
+        cached = model.__dict__["_shards"] = (key, _Shards(model, rules))
+    return cached[1]
+
+
+def _lm_head(x, sh: _Shards):
+    """[N, D] hidden states -> [N, vocab] fp32 logits; under tp each rank
+    computes its vocab rows and the shards are gathered."""
+    x = rms_norm(x, sh.final_norm)
+    logits = lm_logits(x, sh.wte.to(sh.dtype))
+    if sh.n == 1:
+        return logits
+    with use_mesh(sh.mesh):
+        return all_gather(logits, sh.axis, axis=-1, tiled=True)
 
 
 def _rot(positions, cfg: LlamaConfig):
     return _rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _embed(model: Llama, tokens):
-    return model.wte[tokens].to(model.cfg.dtype)
+def _embed(sh: _Shards, tokens):
+    """Token embeddings in the model's dtype. Under tp each rank looks up
+    the vocab rows it holds (zeros for the others) and the shares are
+    summed, which is exact: one term of each sum is not zero."""
+    if sh.n == 1:
+        return sh.wte[tokens].to(sh.dtype)
+    rows = tokens - sh.v0
+    mine = (rows >= 0) & (rows < sh.wte.shape[0])
+    x = sh.wte[rows.clamp(0, sh.wte.shape[0] - 1)] * mine[..., None]
+    return _tp_sum(x.to(sh.dtype), sh)
 
 
 def _upto(pos, max_seq: int):
@@ -249,13 +484,13 @@ def _upto(pos, max_seq: int):
     return torch.arange(max_seq, device=pos.device) <= pos[..., None]
 
 
-def _attend(qg, k, v, mask, cfg: LlamaConfig):
+def _attend(qg, k, v, mask):
     """Grouped-query attention core. qg [B, Hkv, G, C, hd]; k, v
     [B, Hkv, S, hd]; mask broadcastable to [B, Hkv, G, C, S]. Returns
-    [B, C, D]. Scores are the exact product of the operands accumulated in
-    fp32 (16-bit values are exact in fp32, so upcasting the view IS the
-    bf16 x bf16 -> fp32 product of the reference, not a bf16 rounding of
-    the scores)."""
+    [B, C, Hkv * G * hd]. Scores are the exact product of the operands
+    accumulated in fp32 (16-bit values are exact in fp32, so upcasting the
+    view IS the bf16 x bf16 -> fp32 product of the reference, not a bf16
+    rounding of the scores)."""
     b, hkv, g, c, hd = qg.shape
     s = k.shape[2]
     scores = torch.matmul(qg.reshape(b, hkv, g * c, hd).float(),
@@ -264,12 +499,12 @@ def _attend(qg, k, v, mask, cfg: LlamaConfig):
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     o = torch.matmul(probs.reshape(b, hkv, g * c, s), v)
     return o.reshape(b, hkv * g, c, hd).transpose(1, 2).reshape(
-        b, c, cfg.d_model)
+        b, c, hkv * g * hd)
 
 
-def _group(q, cfg: LlamaConfig):
+def _group(q, kv_heads: int):
     b, h, c, hd = q.shape
-    return q.reshape(b, cfg.num_kv_heads, h // cfg.num_kv_heads, c, hd)
+    return q.reshape(b, kv_heads, h // kv_heads, c, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -284,23 +519,23 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, device=None):
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
-def _gqa_cache_attention(q, k_cache, v_cache, mask, cfg: LlamaConfig):
+def _gqa_cache_attention(q, k_cache, v_cache, mask):
     """q [B, H, C, hd] against k/v [B, Hkv, S, hd]; mask broadcastable to
-    [B, Hkv, G, C, S]. Returns [B, C, D]."""
-    return _attend(_group(q, cfg), k_cache, v_cache, mask, cfg)
+    [B, Hkv, G, C, S]. Returns [B, C, H * hd]."""
+    return _attend(_group(q, k_cache.shape[1]), k_cache, v_cache, mask)
 
 
-def _cache_layer_step(x, blk: Block, cfg: LlamaConfig, rot, kv_mask,
+def _cache_layer_step(x, blk: Block, sh: _Shards, rot, kv_mask,
                       write_kv: Callable, attend_view=None):
     """Shared per-layer block of the dense cache paths: they differ only in
     where new K/V lands (``write_kv``, in place) and which cache view
     attention reads (``attend_view``). x [B, T, D] -> x."""
-    q, k_new, v_new = blk.qkv(x, rot)
+    q, k_new, v_new = _qkv(blk, x, rot, sh.h, sh.hkv)
     k_cache, v_cache = write_kv(k_new, v_new)
     if attend_view is not None:
         k_cache, v_cache = attend_view(k_cache, v_cache)
-    o = _gqa_cache_attention(q, k_cache, v_cache, kv_mask, cfg)
-    return blk.ffn(blk.attn_out(x, o))
+    o = _gqa_cache_attention(q, k_cache, v_cache, kv_mask)
+    return _ffn(blk, _attn_out(blk, x, o))
 
 
 def _clamp_start(start: int, size: int, total: int) -> int:
@@ -312,8 +547,8 @@ def _clamp_start(start: int, size: int, total: int) -> int:
 def decode_step(model: Llama, cache, tokens, pos: int):
     """One decode step: tokens [B] at position ``pos``. Returns (logits
     [B, vocab] fp32, cache)."""
-    cfg = model.cfg
-    x = _embed(model, tokens)[:, None, :]
+    cfg, sh = model.cfg, _shards(model)
+    x = _embed(sh, tokens)[:, None, :]
     positions = torch.full((1,), pos, device=tokens.device)
     kv_mask = _upto(positions, cfg.max_seq)
     rot = _rot(positions, cfg)
@@ -324,8 +559,8 @@ def decode_step(model: Llama, cache, tokens, pos: int):
             v_cache[:, :, p:p + 1] = vn
             return k_cache, v_cache
 
-        x = _cache_layer_step(x, blk, cfg, rot, kv_mask, write)
-    return _lm_head(x[:, 0], model), cache
+        x = _cache_layer_step(x, blk, sh, rot, kv_mask, write)
+    return _lm_head(x[:, 0], sh), cache
 
 
 @torch.no_grad()
@@ -334,8 +569,8 @@ def decode_slots(model: Llama, cache, tokens, pos):
     at pos[b] and attends cache positions <= pos[b]. tokens, pos [B].
     Idle slots park at pos = max_seq - 1 (their garbage is overwritten
     before it is attended). Returns (logits [B, vocab] fp32, cache)."""
-    cfg = model.cfg
-    x = _embed(model, tokens)[:, None, :]
+    cfg, sh = model.cfg, _shards(model)
+    x = _embed(sh, tokens)[:, None, :]
     kv_mask = _upto(pos, cfg.max_seq)[:, None, None, None, :]
     rot = _rot(pos[:, None], cfg)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
@@ -346,8 +581,8 @@ def decode_slots(model: Llama, cache, tokens, pos):
             v_cache[rows, :, pw] = vn[:, :, 0]
             return k_cache, v_cache
 
-        x = _cache_layer_step(x, blk, cfg, rot, kv_mask, write)
-    return _lm_head(x[:, 0], model), cache
+        x = _cache_layer_step(x, blk, sh, rot, kv_mask, write)
+    return _lm_head(x[:, 0], sh), cache
 
 
 @torch.no_grad()
@@ -358,9 +593,9 @@ def decode_slots_with_prefill(model: Llama, cache, tokens, pos, pre_tokens,
     [1, B+C, D] sequence; only attention splits. ``pre_slot`` must not be
     an active decode slot. Returns (dec_logits [B, vocab], pre_logits
     [vocab], cache)."""
-    cfg = model.cfg
+    cfg, sh = model.cfg, _shards(model)
     b, c, s_max = tokens.shape[0], pre_tokens.shape[0], cfg.max_seq
-    x = _embed(model, torch.cat([tokens, pre_tokens]))[None]
+    x = _embed(sh, torch.cat([tokens, pre_tokens]))[None]
     pre_positions = pre_p0 + torch.arange(c, device=tokens.device)
     rot = _rot(torch.cat([pos, pre_positions])[None], cfg)
     dec_mask = _upto(pos, s_max)[:, None, None, None, :]
@@ -369,20 +604,20 @@ def decode_slots_with_prefill(model: Llama, cache, tokens, pos, pre_tokens,
     pw = pos.clamp(0, s_max - 1)
     p0 = _clamp_start(pre_p0, c, s_max)
     for blk, k_cache, v_cache in zip(model.blocks, cache["k"], cache["v"]):
-        q, k_new, v_new = blk.qkv(x, rot)
+        q, k_new, v_new = _qkv(blk, x, rot, sh.h, sh.hkv)
         qd = q[0, :, :b].transpose(0, 1)[:, :, None]         # [B,h,1,hd]
         k_cache[rows, :, pw] = k_new[0, :, :b].transpose(0, 1)
         v_cache[rows, :, pw] = v_new[0, :, :b].transpose(0, 1)
         k_cache[pre_slot, :, p0:p0 + c] = k_new[0, :, b:]
         v_cache[pre_slot, :, p0:p0 + c] = v_new[0, :, b:]
-        od = _gqa_cache_attention(qd, k_cache, v_cache, dec_mask, cfg)
+        od = _gqa_cache_attention(qd, k_cache, v_cache, dec_mask)
         op = _gqa_cache_attention(
             q[:, :, b:], k_cache[pre_slot:pre_slot + 1],
-            v_cache[pre_slot:pre_slot + 1], pre_mask, cfg)
+            v_cache[pre_slot:pre_slot + 1], pre_mask)
         o = torch.cat([od[:, 0][None], op], dim=1)          # [1,B+C,D]
-        x = blk.ffn(blk.attn_out(x, o))
+        x = _ffn(blk, _attn_out(blk, x, o))
     heads_in = torch.cat([x[0, :b], x[0, b + pre_last_idx][None]])
-    logits = _lm_head(heads_in, model)
+    logits = _lm_head(heads_in, sh)
     return logits[:b], logits[b], cache
 
 
@@ -392,9 +627,9 @@ def prefill_chunk(model: Llama, cache, tokens, slot: int, p0: int,
     """Write one prompt chunk (tokens [C], tail padding allowed) into
     ``slot`` at ``p0`` and return the logits of chunk row ``last_idx``
     ([vocab]) or of every row ([C, vocab]), with the cache."""
-    cfg = model.cfg
+    cfg, sh = model.cfg, _shards(model)
     c = tokens.shape[0]
-    x = _embed(model, tokens)[None]
+    x = _embed(sh, tokens)[None]
     abs_pos = p0 + torch.arange(c, device=tokens.device)
     kv_mask = _upto(abs_pos, cfg.max_seq)[None, None, None]
     rot = _rot(abs_pos[None], cfg)
@@ -408,10 +643,10 @@ def prefill_chunk(model: Llama, cache, tokens, slot: int, p0: int,
         def view(kc, vc):
             return kc[slot:slot + 1], vc[slot:slot + 1]
 
-        x = _cache_layer_step(x, blk, cfg, rot, kv_mask, write, view)
+        x = _cache_layer_step(x, blk, sh, rot, kv_mask, write, view)
     if last_idx is not None:
-        return _lm_head(x[0, last_idx][None], model)[0], cache
-    return _lm_head(x[0], model), cache
+        return _lm_head(x[0, last_idx][None], sh)[0], cache
+    return _lm_head(x[0], sh), cache
 
 
 # ---------------------------------------------------------------------------
@@ -419,15 +654,16 @@ def prefill_chunk(model: Llama, cache, tokens, slot: int, p0: int,
 # ---------------------------------------------------------------------------
 
 def init_paged_kv_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
-                        device=None):
+                        device=None, shards: int = 1):
     """The page pool, zeroed: masked positions are gathered and multiplied
     by a probability of exactly 0, which stays 0 only while every cell
-    holds a finite value."""
+    holds a finite value. ``shards`` > 1: one tp rank's pool, with
+    num_kv_heads / shards heads."""
     if cfg.max_seq % page_size != 0:
         raise ValueError(
             f"page_size ({page_size}) must divide max_seq ({cfg.max_seq})")
-    shape = (cfg.num_layers, 2, num_pages, page_size, cfg.num_kv_heads,
-             cfg.head_dim)
+    shape = (cfg.num_layers, 2, num_pages, page_size,
+             cfg.num_kv_heads // shards, cfg.head_dim)
     return {"kv": torch.zeros(shape, dtype=cfg.dtype,
                               device=default_device(device))}
 
@@ -462,22 +698,34 @@ def _scatter_token_kv(kv_l, kn, vn, dest):
     return kv_l
 
 
-def _gqa_paged_attention(q, kv, mask, cfg: LlamaConfig):
+def _gqa_paged_attention(q, kv, mask):
     """q [B, H, C, hd] against a gathered seq-major view kv [2, B, S, Hkv,
-    hd]; mask broadcastable to [B, Hkv, G, C, S]. Returns [B, C, D]."""
-    return _attend(_group(q, cfg), kv[0].transpose(1, 2),
-                   kv[1].transpose(1, 2), mask, cfg)
+    hd]; mask broadcastable to [B, Hkv, G, C, S]. Returns [B, C, H * hd]."""
+    return _attend(_group(q, kv.shape[3]), kv[0].transpose(1, 2),
+                   kv[1].transpose(1, 2), mask)
 
 
-def _paged_layer_step(x, blk: Block, cfg: LlamaConfig, rot, kv_mask,
-                      write_kv: Callable, attend_view: Callable):
-    """The paged twin of :func:`_cache_layer_step`: ``write_kv`` lands new
-    K/V by physical page id (in place), ``attend_view`` gathers the
-    seq-major view attention reads. x [B, T, D] -> x."""
-    q, k_new, v_new = blk.qkv(x, rot)
+def _paged_layer_step(x, w, sh: _Shards, rot, kv_mask, write_kv: Callable,
+                      attend_view: Callable):
+    """The paged twin of :func:`_cache_layer_step`, on one rank's shards
+    ``w`` of a layer: ``write_kv`` lands new K/V by physical page id (in
+    place), ``attend_view`` gathers the seq-major view attention reads.
+    x [B, T, D] -> x."""
+    q, k_new, v_new = _qkv(w, x, rot, sh.h, sh.hkv)
     kv_l = write_kv(k_new, v_new)
-    o = _gqa_paged_attention(q, attend_view(kv_l), kv_mask, cfg)
-    return blk.ffn(blk.attn_out(x, o))
+    o = _gqa_paged_attention(q, attend_view(kv_l), kv_mask)
+    return _ffn(w, _attn_out(w, x, o, sh), sh)
+
+
+def _paged_shards(model: Llama, cache, rules) -> _Shards:
+    """``_shards`` of the model, checked against the page pool's
+    heads."""
+    sh = _shards(model, rules)
+    if cache["kv"].shape[4] != sh.hkv:
+        raise ValueError(
+            f"the page pool holds {cache['kv'].shape[4]} KV heads; this "
+            f"rank's shards hold {sh.hkv} (init_paged_kv_cache(shards=))")
+    return sh
 
 
 @torch.no_grad()
@@ -486,20 +734,19 @@ def decode_slots_paged(model: Llama, cache, tables, tokens, pos,
     """``decode_slots`` over the paged cache. tables [B, P], tokens [B],
     pos [B]. Parked rows (pos >= max_seq) write only into the scratch
     page. Returns (logits [B, vocab] fp32, cache)."""
-    _check_rules(rules)
-    cfg = model.cfg
-    x = _embed(model, tokens)[:, None, :]
+    cfg, sh = model.cfg, _paged_shards(model, cache, rules)
+    x = _embed(sh, tokens)[:, None, :]
     kv_mask = _upto(pos, cfg.max_seq)[:, None, None, None, :]
     rot = _rot(pos[:, None], cfg)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     dest = _token_dest(tables, rows, pos, page_size, cfg.max_seq)
-    for blk, kv_l in zip(model.blocks, cache["kv"]):
+    for w, kv_l in zip(sh.blocks, cache["kv"]):
         def write(kn, vn, kv_l=kv_l):
             return _scatter_token_kv(kv_l, kn[:, :, 0], vn[:, :, 0], dest)
 
-        x = _paged_layer_step(x, blk, cfg, rot, kv_mask, write,
+        x = _paged_layer_step(x, w, sh, rot, kv_mask, write,
                               lambda kv: _gather_pages(kv, tables))
-    return _lm_head(x[:, 0], model), cache
+    return _lm_head(x[:, 0], sh), cache
 
 
 def _row(t, i):
@@ -529,22 +776,21 @@ def prefill_chunk_paged(model: Llama, cache, tables, tokens, slot, p0,
     allowed) into ``slot``'s pages from position p0, each token to its own
     page (a chunk may straddle pages). Returns ([vocab] logits of chunk
     row n_valid - 1, cache)."""
-    _check_rules(rules)
-    cfg = model.cfg
-    x = _embed(model, tokens)[None]
+    cfg, sh = model.cfg, _paged_shards(model, cache, rules)
+    x = _embed(sh, tokens)[None]
     abs_pos = p0 + torch.arange(tokens.shape[0], device=tokens.device)
     kv_mask = _upto(abs_pos, cfg.max_seq)[None, None, None]
     rot = _rot(abs_pos[None], cfg)
     dest = _chunk_dest(tables, slot, abs_pos, n_valid, page_size, cfg.max_seq)
     slot_table = _row(tables, slot)[None]
-    for blk, kv_l in zip(model.blocks, cache["kv"]):
+    for w, kv_l in zip(sh.blocks, cache["kv"]):
         def write(kn, vn, kv_l=kv_l):
             return _scatter_token_kv(kv_l, kn[0].transpose(0, 1),
                                      vn[0].transpose(0, 1), dest)
 
-        x = _paged_layer_step(x, blk, cfg, rot, kv_mask, write,
+        x = _paged_layer_step(x, w, sh, rot, kv_mask, write,
                               lambda kv: _gather_pages(kv, slot_table))
-    return _lm_head(_row(x[0], n_valid - 1)[None], model)[0], cache
+    return _lm_head(_row(x[0], n_valid - 1)[None], sh)[0], cache
 
 
 @torch.no_grad()
@@ -558,10 +804,9 @@ def decode_slots_with_prefill_paged(model: Llama, cache, tables, tokens, pos,
     decode row, so the two scatters touch disjoint pages; both land
     before attention, so in-chunk causality holds. Returns (dec_logits
     [B, vocab], pre_logits [vocab], cache)."""
-    _check_rules(rules)
-    cfg = model.cfg
+    cfg, sh = model.cfg, _paged_shards(model, cache, rules)
     b, c, s_max = tokens.shape[0], pre_tokens.shape[0], cfg.max_seq
-    x = _embed(model, torch.cat([tokens, pre_tokens]))[None]
+    x = _embed(sh, torch.cat([tokens, pre_tokens]))[None]
     pre_positions = pre_p0 + torch.arange(c, device=tokens.device)
     rot = _rot(torch.cat([pos, pre_positions])[None], cfg)
     dec_mask = _upto(pos, s_max)[:, None, None, None, :]
@@ -571,20 +816,19 @@ def decode_slots_with_prefill_paged(model: Llama, cache, tables, tokens, pos,
     pre_dest = _chunk_dest(tables, pre_slot, pre_positions, pre_n_valid,
                            page_size, s_max)
     slot_table = _row(tables, pre_slot)[None]
-    for blk, kv_l in zip(model.blocks, cache["kv"]):
-        q, k_new, v_new = blk.qkv(x, rot)
+    for w, kv_l in zip(sh.blocks, cache["kv"]):
+        q, k_new, v_new = _qkv(w, x, rot, sh.h, sh.hkv)
         k_new, v_new = k_new[0].transpose(0, 1), v_new[0].transpose(0, 1)
         _scatter_token_kv(kv_l, k_new[:b], v_new[:b], dec_dest)
         _scatter_token_kv(kv_l, k_new[b:], v_new[b:], pre_dest)
         od = _gqa_paged_attention(q[0, :, :b].transpose(0, 1)[:, :, None],
-                                  _gather_pages(kv_l, tables), dec_mask, cfg)
+                                  _gather_pages(kv_l, tables), dec_mask)
         op = _gqa_paged_attention(q[:, :, b:],
-                                  _gather_pages(kv_l, slot_table), pre_mask,
-                                  cfg)
+                                  _gather_pages(kv_l, slot_table), pre_mask)
         o = torch.cat([od[:, 0][None], op], dim=1)          # [1,B+C,D]
-        x = blk.ffn(blk.attn_out(x, o))
+        x = _ffn(w, _attn_out(w, x, o, sh), sh)
     heads_in = torch.cat([x[0, :b], _row(x[0], b + pre_n_valid - 1)[None]])
-    logits = _lm_head(heads_in, model)
+    logits = _lm_head(heads_in, sh)
     return logits[:b], logits[b], cache
 
 

@@ -70,6 +70,41 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
+def capacity_for(tokens: int, num_experts: int, top_k: int,
+                 capacity_factor: float) -> int:
+    """Slots an expert takes: int(capacity_factor * tokens * k / experts),
+    at least 1, padded up to a multiple of 8."""
+    capacity = max(1, int(capacity_factor * tokens * top_k / num_experts))
+    return -(-capacity // 8) * 8
+
+
+def route(logits, num_experts: int, top_k: int, capacity_factor: float):
+    """Top-k routing of router logits [tokens, E] at a fixed capacity:
+    (dispatch, combine), each [tokens, E, C] (``_dispatch_mask``)."""
+    gate_vals, gate_idx, _ = router_topk(logits, top_k)
+    return _dispatch_mask(gate_idx, gate_vals, num_experts, capacity_for(
+        logits.shape[0], num_experts, top_k, capacity_factor))
+
+
+def expert_ffn(expert_in, w_in, w_out, axis_name: Optional[str] = None,
+               activation: Callable = _gelu):
+    """The experts on their slots: [E, C, model] -> [E, C, model], fp32.
+    With an ep axis the slots go to their experts' ranks and back: a tiled
+    all_to_all splits the expert dim into ep pieces (piece j = rank j's
+    experts) and the pieces received concatenate on the slot dim, [E, C,
+    m] -> [E_local, ep*C, m], source-rank-major; the strict inverse brings
+    them back."""
+    ep = axis_size(axis_name) if axis_name else 1
+    if ep > 1:
+        expert_in = all_to_all(expert_in, axis_name, split_axis=0,
+                               concat_axis=1, tiled=True)
+    h = activation(torch.einsum("ecm,emh->ech", expert_in, w_in.float()))
+    y = torch.einsum("ech,ehm->ecm", h, w_out.float())
+    if ep > 1:
+        y = all_to_all(y, axis_name, split_axis=1, concat_axis=0, tiled=True)
+    return y
+
+
 def moe_ffn_local(x, router_w, w_in, w_out, *, num_experts: int,
                   top_k: int = 2, capacity_factor: float = 1.25,
                   axis_name: Optional[str] = "ep",
@@ -84,38 +119,14 @@ def moe_ffn_local(x, router_w, w_in, w_out, *, num_experts: int,
 
     Returns (y [tokens_local, model], aux_loss scalar).
     """
-    tokens, model = x.shape
-    ep = axis_size(axis_name) if axis_name else 1
-    e_local = num_experts // ep
-
+    tokens = x.shape[0]
     logits = x.float() @ router_w.float()
     gate_vals, gate_idx, probs = router_topk(logits, top_k)
     aux = load_balance_loss(probs, gate_idx, num_experts)
-
-    capacity = max(1, int(capacity_factor * tokens * top_k / num_experts))
-    capacity = -(-capacity // 8) * 8
-    dispatch, combine = _dispatch_mask(gate_idx, gate_vals, num_experts,
-                                       capacity)
-
+    dispatch, combine = _dispatch_mask(
+        gate_idx, gate_vals, num_experts,
+        capacity_for(tokens, num_experts, top_k, capacity_factor))
     expert_in = torch.einsum("tec,tm->ecm", dispatch, x.float())
-    if axis_name and ep > 1:
-        # Tiled all_to_all: the expert dim splits into ep pieces (piece j =
-        # rank j's experts) and the pieces received concatenate on the slot
-        # dim: [E, C, m] -> [e_local, ep*C, m], source-rank-major.
-        expert_in = all_to_all(expert_in, axis_name, split_axis=0,
-                               concat_axis=1, tiled=True)
-    else:
-        expert_in = expert_in.reshape(e_local, capacity, model)
-
-    h = activation(torch.einsum("ecm,emh->ech", expert_in, w_in.float()))
-    y = torch.einsum("ech,ehm->ecm", h, w_out.float())
-
-    if axis_name and ep > 1:
-        # The strict inverse: slot blocks back to their source ranks,
-        # concatenated on the expert dim -> [E, C, m].
-        y = all_to_all(y, axis_name, split_axis=1, concat_axis=0, tiled=True)
-    else:
-        y = y.reshape(num_experts, capacity, model)
-
+    y = expert_ffn(expert_in, w_in, w_out, axis_name, activation)
     out = torch.einsum("tec,ecm->tm", combine, y)
     return out.to(x.dtype), aux

@@ -151,6 +151,109 @@ def test_remat_policy_matches_none_and_jax(policy, monkeypatch):
     _assert_grads_match_jax(grads_j, model, tcfg)
 
 
+def _jax_remat(block, policy):
+    """``block`` under the JAX package's remat policy of that name
+    (``ray_tpu/models/gpt2.py`` forward_features)."""
+    cp = jax.checkpoint_policies
+    names = {"mem": ("qkv", "attn_out", "attn_lse", "mlp_in"),
+             "mem2": ("qkv", "attn_out", "attn_lse")}
+    if policy == "dots":
+        return jax.checkpoint(block, policy=cp.dots_with_no_batch_dims_saveable)
+    if policy == "dots_attn":
+        return jax.checkpoint(block, policy=cp.save_from_both_policies(
+            cp.dots_with_no_batch_dims_saveable,
+            cp.save_only_these_names("attn_out", "attn_lse")))
+    if policy in names:
+        return jax.checkpoint(block,
+                              policy=cp.save_only_these_names(*names[policy]))
+    return jax.checkpoint(block)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_moe_remat_policy_matches_none_and_jax(policy, monkeypatch):
+    """MoE GPT-2 (4 experts, top-2) under each remat policy: loss and every
+    gradient equal the port's "none" run (1e-6 relative, of each
+    gradient's largest entry) and JAX's ``loss_fn`` at ``remat=True`` with
+    the same policy (1e-5 on the loss, 1e-4 on each gradient). Attention's
+    forward runs once per layer where the policy keeps it and twice where
+    the backward recomputes it."""
+    jcfg, params, tcfg, model = _pair(policy, num_experts=4)
+    _, _, _, plain = _pair(num_experts=4)
+    batch = {"tokens": torch.from_numpy(_tokens())}
+    loss_none = plain.loss_fn(batch)
+    loss_none.backward()
+    forwards = []
+    fwd = tattn.mha_reference_with_lse
+    monkeypatch.setattr(tattn, "mha_reference_with_lse",
+                        lambda *a, **k: forwards.append(1) or fwd(*a, **k))
+    loss_t = model.loss_fn(batch)
+    loss_t.backward()
+    runs = 1 if "attn" in tgpt2.MOE_REMAT_KEEPS[policy] else 2
+    assert len(forwards) == runs * TINY["num_layers"]
+    assert abs(loss_t.item() - loss_none.item()) <= 1e-6 * loss_none.item()
+    want = _grads(plain)
+    for name, g in _grads(model).items():
+        err = ((g - want[name]).abs().max()
+               / want[name].abs().max().clamp_min(1e-12)).item()
+        assert err < 1e-6, (name, err)
+    loss_j, grads_j = jax.value_and_grad(
+        lambda p: jgpt2.loss_fn(p, {"tokens": jnp.asarray(_tokens())},
+                                jcfg))(params)
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-5)
+    _assert_grads_match_jax(grads_j, model, tcfg)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_moe_remat_saved_set_matches_jax(policy):
+    """What one MoE block (4 experts) leaves for its backward: the bytes a
+    saved_tensors_hooks pack hook sees (each storage once, the block's
+    input and the parameters left out) equal JAX's saved residuals of the
+    same block under the same policy (``jax.ad_checkpoint``'s
+    ``print_saved_residuals``, arguments left out, and the second name of
+    attention's output, which ``_attend`` tags again, counted once). The
+    layouts differ (a kept attention holds q, k, v in head layout where JAX
+    keeps qkv), the bytes do not."""
+    import contextlib
+    import io
+    import re
+    from functools import partial
+
+    import jax.ad_checkpoint
+
+    jcfg, params, _, model = _pair(policy, num_experts=4)
+    x = np.random.default_rng(2).standard_normal((2, 32, 64)).astype(
+        np.float32)
+    p0 = jax.tree.map(lambda a: a[0], params["blocks"])
+    block = _jax_remat(partial(jgpt2._block, cfg=jcfg, rules=None), policy)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        jax.ad_checkpoint.print_saved_residuals(
+            lambda x, p: (lambda r: r[0].sum() + r[1])(block(x, p)),
+            jnp.asarray(x), p0)
+    residuals = [re.match(r"(f32|s32)\[([\d,]*)\] (.*)", line).groups()
+                 for line in text.getvalue().splitlines()]
+    named = any("named 'attn_out'" in why for _, _, why in residuals)
+    want = sum(4 * int(np.prod([int(n) for n in shape.split(",") if n]))
+               for _, shape, why in residuals
+               if not why.startswith("from the argument")
+               and not (named and "(_attend)" in why))
+    xt = torch.from_numpy(x).requires_grad_()
+    skip = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    skip.add(xt.untyped_storage().data_ptr())
+    storages = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in skip:
+            storages[st.data_ptr()] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out, aux = model.blocks[0](xt)
+    (out.sum() + aux).backward()
+    assert sum(storages.values()) == want, (storages, want)
+
+
 def test_remat_saved_bytes_order():
     """Bytes the forward leaves for the backward, counted by a
     saved_tensors_hooks pack hook (each storage once): a checkpointed
@@ -202,9 +305,14 @@ PARALLEL = {  # the options that need parallel/, by name
 }
 
 
+EP2_DOTS = dict(num_experts=4, remat_policy="dots")
+EP_RULES = {"batch": ("dp", "fsdp", "ep")}
+
+
 @pytest.fixture(scope="module")
 def sp2_world(tmp_path_factory):
-    """Ring and Ulysses GPT-2 on two gloo ranks (sp=2), and pp+MoE."""
+    """Ring and Ulysses GPT-2 on two gloo ranks (sp=2), pp+MoE, and MoE
+    under "dots" at ep=2."""
     import torch_dist_worker as W
 
     cases = [("case_gpt2_grads", dict(
@@ -213,6 +321,10 @@ def sp2_world(tmp_path_factory):
         tokens=_tokens())) for o in ("ring", "ulysses")]
     cases.append(("case_pp_moe_raises", dict(cfg=dict(
         TINY, dtype=torch.float32, num_experts=4))))
+    cases.append(("case_gpt2_grads", dict(
+        mesh=dict(ep=2), cfg=dict(TINY, dtype=torch.float32, **EP2_DOTS),
+        params=jax.tree.map(np.asarray, _pair(**EP2_DOTS)[1]),
+        tokens=_tokens(), rules=EP_RULES)))
     return W.run_world(2, cases, tmp_path_factory.mktemp("gloo"))
 
 
@@ -258,7 +370,36 @@ def test_parallel_options_match_jax(option, sp2_world):
 def test_pp_with_moe_raises(sp2_world):
     """pp+MoE is refused, as the JAX package refuses it."""
     for rank in sp2_world:
-        assert "pp+MoE is not supported" in str(rank[-1]["error"])
+        assert "pp+MoE is not supported" in str(rank[2]["error"])
+
+
+def test_moe_ep2_dots_matches_jax(sp2_world):
+    """MoE GPT-2 (4 experts) under "dots" at ep=2 (two gloo ranks, each
+    routing its half of the batch to experts split over ep): each rank's
+    loss and gradients against the JAX model at ``remat=True,
+    remat_policy="dots"`` on the same mesh, 1e-5 relative on the loss and
+    1e-4 of each gradient's largest entry."""
+    from ray_tpu.parallel.mesh import MeshSpec
+    from ray_tpu.parallel.sharding import prune_rules_for_mesh, under_mesh
+
+    jcfg, params, _, _ = _pair(**EP2_DOTS)
+    tokens = _tokens()
+    mesh = MeshSpec(ep=2).build(jax.devices()[:2])
+    rules = prune_rules_for_mesh(mesh, EP_RULES)
+    loss_j, grads_j = under_mesh(mesh, jax.jit(jax.value_and_grad(
+        lambda p: jgpt2.loss_fn(p, {"tokens": jnp.asarray(tokens)}, jcfg,
+                                rules=rules))))(params)
+    for rank in sp2_world:
+        res = rank[3]
+        np.testing.assert_allclose(float(res["loss"]), float(loss_j),
+                                   rtol=1e-5)
+        for path, gj in jax.tree_util.tree_flatten_with_path(grads_j)[0]:
+            gt = res["grads"]
+            for key in path:
+                gt = gt[key.key]
+            gj = np.asarray(gj)
+            err = np.abs(gt - gj).max() / max(np.abs(gj).max(), 1e-12)
+            assert err < 1e-4, (jax.tree_util.keystr(path), err)
 
 
 def test_parallel_attention_needs_a_mesh():
@@ -270,12 +411,6 @@ def test_parallel_attention_needs_a_mesh():
 def test_unknown_remat_policy_raises():
     with pytest.raises(ValueError, match="remat_policy"):
         tgpt2.GPT2(tgpt2.GPT2Config(**TINY, remat_policy="dot"))
-
-
-def test_moe_with_remat_raises():
-    with pytest.raises(NotImplementedError, match="remat_policy='none'"):
-        tgpt2.GPT2(tgpt2.GPT2Config(**TINY, num_experts=4,
-                                    remat_policy="mem2"))
 
 
 def test_rules_without_mesh_are_the_identity():

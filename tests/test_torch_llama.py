@@ -311,14 +311,23 @@ def test_paged_cache_layout_heads_minor():
         tl.init_paged_kv_cache(TCFG, 7, 12, "cpu")
 
 
-def test_sharding_rules_raise(model):
-    cache = tl.init_paged_kv_cache(TCFG, 3, PS, "cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tl.decode_slots_paged(model, cache, torch.zeros((1, PPS)).long(),
-                              torch.zeros(1).long(), torch.zeros(1).long(),
-                              PS, rules={"kv": "tp"})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        model(torch.zeros((1, 4)).long(), rules={"kv": "tp"})
+def test_rules_without_a_mesh_are_the_identity(model):
+    """Rules on parameters that are not placed change nothing, as
+    ``constrain`` in the JAX package: forward logits and a paged decode
+    step equal those without rules (sharded paths:
+    tests/test_torch_llm_tp.py)."""
+    tokens = torch.from_numpy(_tokens((1, 12)))
+    with torch.no_grad():
+        torch.testing.assert_close(model(tokens, rules={"kv": "tp"}),
+                                   model(tokens), rtol=0, atol=0)
+    tables = torch.arange(1, PPS + 1)[None]
+    logits = []
+    for rules in (None, {"kv": "tp", "heads": "tp"}):
+        cache = tl.init_paged_kv_cache(TCFG, PPS + 1, PS, "cpu")
+        logits.append(tl.decode_slots_paged(
+            model, cache, tables, tokens[0, :1], torch.zeros(1).long(), PS,
+            rules=rules)[0])
+    torch.testing.assert_close(logits[0], logits[1], rtol=0, atol=0)
 
 
 def test_llama_needs_cuda_unless_cpu_asked():

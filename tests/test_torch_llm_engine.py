@@ -299,7 +299,7 @@ def test_submit_validation(model):
         eng.submit(list(range(1, 100)), max_new=TCFG.max_seq)
     with pytest.raises(ValueError):
         SlotEngine(model, chunk=7, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         SlotEngine(model, mesh=object(), device="cpu")
 
 
@@ -434,7 +434,5 @@ def test_llm_server_plain_and_stream_match_jax(server, pair):
 
 
 def test_llm_server_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        LLMServer(tp=2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         LLMServer(checkpoint_path="/nonexistent", device="cpu")

@@ -380,3 +380,143 @@ def case_ops(rank, world):
                 (y * g).sum().backward()
                 out[name + "_grad"] = _np(x.grad)
     return out
+
+
+def case_llama_grads(rank, world, params, tokens, rules=None, remat=False):
+    """The port's llama-tiny loss and gradients on ``MeshSpec(tp=world)``
+    (parameters placed by the pruned rules), from the JAX package's
+    parameters; gradients in the JAX layout, and each rank's local shape of
+    every parameter."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.convert import (llama_params_from_numpy,
+                                              llama_tree_to_numpy)
+    from ray_tpu_torch.parallel.sharding import (place, prune_rules_for_mesh,
+                                                 use_mesh)
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama-tiny"], remat=remat)
+    dmesh = _mesh(tp=world)
+    pruned = prune_rules_for_mesh(dmesh, rules)
+    model = llama.Llama(cfg, device="cpu")
+    model.load_state_dict(llama_params_from_numpy(params, cfg))
+    place(dmesh, model, model.logical_axes(), pruned)
+    with use_mesh(dmesh):
+        loss = model.loss_fn({"tokens": torch.from_numpy(tokens)}, pruned)
+        loss.backward()
+    grads = {n: p.grad.full_tensor() for n, p in model.named_parameters()}
+    return {"loss": _np(loss), "grads": llama_tree_to_numpy(grads, cfg),
+            "local": {n: np.asarray(p.to_local().shape)
+                      for n, p in model.named_parameters()}}
+
+
+def _drive(engine, prompt, max_new, **kw):
+    """Rank 0: one request through ``step()`` to its end; its tokens."""
+    h = engine.submit(prompt, max_new=max_new, **kw)
+    for _ in range(4000):
+        if h._done.is_set():
+            return h.result(timeout=0).tokens
+        engine.step()
+    raise AssertionError("the engine did not finish")
+
+
+def _tiny_llama(params):
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.convert import llama_params_from_numpy
+
+    cfg = llama.CONFIGS["llama-tiny"]
+    model = llama.Llama(cfg, device="cpu")
+    model.load_state_dict(llama_params_from_numpy(params, cfg))
+    return model.requires_grad_(False)
+
+
+def case_llm_tp(rank, world, params, prompt, max_new, engine_kw):
+    """llama-tiny served at tp = world (rank 0 schedules, the others
+    follow) and, on rank 0, at tp1 from the same weights: greedy and
+    seeded-sampled tokens, each rank's parameter shards and page pool after
+    the requests, ``decode_profile``, a session exported at tp1 and
+    continued at tp = world and the other way round, and the error of a
+    config whose 3 heads tp does not divide."""
+    from ray_tpu_torch.llm.engine import SlotEngine
+    from ray_tpu_torch.models import llama
+
+    mesh = _mesh(tp=world)
+    tp = SlotEngine(_tiny_llama(params), mesh=mesh, device="cpu",
+                    **engine_kw)
+    out = {"kv_spec": np.asarray(str(tuple(tp.kv_spec)))}
+    sampled = dict(temperature=0.7, seed=99)
+    turn2 = [int(t) for t in np.random.default_rng(6).integers(1, 512, 5)]
+    if rank == 0:
+        one = SlotEngine(_tiny_llama(params), device="cpu", **engine_kw)
+        out["greedy_tp1"] = np.asarray(_drive(one, prompt, max_new))
+        out["sampled_tp1"] = np.asarray(_drive(one, prompt, max_new,
+                                               **sampled))
+        out["greedy"] = np.asarray(_drive(tp, prompt, max_new))
+        out["sampled"] = np.asarray(_drive(tp, prompt, max_new, **sampled))
+        out["devices"] = np.asarray(tp.decode_profile()["devices"])
+        # tp1 -> tp: the session's first turn at tp1, its second at tp
+        # after an import, against tp1 going on alone.
+        first = _drive(one, prompt, max_new, session_id="a")
+        snap = one.export_session("a")
+        follow_up = prompt + first + turn2
+        out["session_tp1_alone"] = np.asarray(_drive(one, follow_up, 6))
+        tp.clear_prefix_cache()  # the import writes every page
+        imported = tp.import_session(snap)
+        out["session_tp_after_import"] = np.asarray(
+            _drive(tp, follow_up, 6))
+        out["session_tp_matched"] = np.asarray(imported["pages_imported"])
+        # tp -> tp1, the other way round.
+        first = _drive(tp, prompt, max_new, session_id="b")
+        snap = tp.export_session("b")
+        out["snapshot_heads"] = np.asarray(snap["pages_kv"].shape[4])
+        follow_up = prompt + first + turn2
+        out["session_tp_alone"] = np.asarray(_drive(tp, follow_up, 6))
+        fresh = SlotEngine(_tiny_llama(params), device="cpu", **engine_kw)
+        fresh.import_session(snap)
+        out["session_tp1_after_import"] = np.asarray(
+            _drive(fresh, follow_up, 6))
+        out["no_graphs"] = np.asarray(len(tp._graphs) == 0)
+        tp.stop()
+    else:
+        tp.follow()
+    out["local"] = {n: np.asarray(p.to_local().shape)
+                    for n, p in tp._model.named_parameters()}
+    out["pool"] = np.asarray(tp._cache["kv"].shape)
+    bad = llama.LlamaConfig(vocab_size=512, max_seq=128, num_layers=1,
+                            num_heads=3, num_kv_heads=3, d_model=48, d_mlp=96,
+                            dtype=torch.float32)
+    try:
+        SlotEngine(llama.Llama(bad, device="cpu"), num_slots=2, chunk=8,
+                   page_size=8, mesh=mesh, device="cpu")
+        out["bad_error"] = np.asarray("")
+    except ValueError as e:
+        out["bad_error"] = np.asarray(str(e))
+    return out
+
+
+def case_llm_server_tp(rank, world, params, prompt, max_new):
+    """``LLMServer(tp=world)`` from the JAX package's parameters: rank 0
+    answers one plain and one streaming request, the others follow."""
+    import asyncio
+
+    from ray_tpu_torch.llm.serve import LLMServer
+
+    server = LLMServer(model="llama-tiny", num_slots=2, chunk=8,
+                       page_size=8, decode_block=2, tp=world,
+                       params=params, device="cpu")
+    out = {"tp": np.asarray(server.engine.tp)}
+    if rank == 0:
+        async def both():
+            plain = await server({"prompt": prompt, "max_tokens": max_new})
+            stream = [t async for t in await server(
+                {"prompt": prompt, "max_tokens": max_new, "stream": True})]
+            return plain, stream
+
+        plain, stream = asyncio.run(both())
+        out["plain"] = np.asarray(plain["tokens"])
+        out["stream"] = np.asarray(stream)
+        server.engine.stop()
+    else:
+        server.engine._thread.join(timeout=120)
+        out["followed"] = np.asarray(not server.engine._thread.is_alive())
+    return out
