@@ -105,6 +105,24 @@ Phases; any failure exits non-zero:
      metric finite and timesteps_this_iter 32768; then CartPole
      (cartpole(64), rollout 128, 8 minibatches, 4 epochs, seed 0) must reach
      mean_episode_len >= 128 within 120 iterations;
+ 7b. the actor-based RLlib algorithms through ``XConfig()...build()`` (no
+     device: the learner on the card; the rollout worker's policy on the
+     CPU), locally: PPO on AtariSim at full width (16 envs x 128 steps,
+     PPOConfig's defaults; 1 warm-up + 2 timed iterations), recurrent PPO
+     (RepeatPrevObs, LSTM 256 over (256, 256); 2), A2C ((256, 256); 3),
+     IMPALA, IMPALA-LSTM and APPO (8 batches an iteration; 2 each) and
+     DQN at its defaults until the first target sync (500 updates).
+     Gates: learner parameters and optimizer state on the card, the
+     worker's policy on the CPU; every metric finite and timesteps_total
+     as the settings imply; each algorithm's first learner update replayed
+     on the card and the CPU from the same inputs under full_fp32 (loss
+     1e-5, parameters 1e-4 of their norm; PPO: one SGD step so, then the
+     whole update's parameters so and its last loss 1e-3; PPO-AtariSim's
+     bf16 trunk: one SGD step, loss 2e-2, parameters 1e-2, and its
+     ppo_loss gradients per leaf 2e-2, conv biases 1e-1); PPO-AtariSim's
+     save/restore bit-identical on the card; no attention kernel. Prints
+     PPO-AtariSim's env-steps/s, rollout and learner ms an iteration and
+     each run's wall seconds (~30-90 s);
   8. prints the kernels as one JSON line (each entry also with its
      launches a step on phases 5h and 5i and a rank on phase 5j's
      ring-flash and Ulysses), the card again, and last
@@ -230,6 +248,26 @@ TOL_REMAT_LOSS = 1e-3
 TOL_PPO_NET = 5e-2
 TOL_GAE = 1e-5
 TOL_GRAPH = 1e-3
+# Phase 7b, the actor-based RLlib learners: one learner update on the card
+# against the same update on the CPU (fp32 under full_fp32): the loss,
+# relative; the parameters as the L2 norm of their difference over all
+# leaves over the parameters' norm (Adam's first steps move an element by
+# about lr whatever its gradient's size, so an element whose gradient is
+# near zero may step either way on the two devices). PPO-AtariSim's conv
+# trunk is bf16 (as the JAX package's), and its gradients are held per
+# leaf as the CPU tests hold the bf16 conv policy's (conv biases, sums
+# over every position of bf16 cotangents, looser).
+TOL_RL_LOSS = 1e-5
+TOL_RL_PARAMS = 1e-4
+# A multi-step update's loss is its last minibatch's, read after every
+# step before it; the recurrent net runs each through a 64-step scan. On
+# the CPU alone, moving the starting parameters by 1e-7 (relative) moves
+# recurrent PPO's loss after its 32 steps by 1.4e-5.
+TOL_RL_LOSS_MULTI = 1e-3
+TOL_RL_LOSS_BF16 = 2e-2
+TOL_RL_PARAMS_BF16 = 1e-2
+TOL_RL_GRAD_BF16 = 2e-2
+TOL_RL_GRAD_BF16_CONV_BIAS = 1e-1
 # Fault C3's phase: llama-tiny's loss at this batch and sequence length.
 C3_BATCH, C3_SEQ = 2, 64
 # bench.py's bench_ppo: envs, rollout length, epochs, minibatches.
@@ -678,6 +716,8 @@ def main(argv):
     # -- 7. on-device PPO ---------------------------------------------------
     ppo = ppo_phase(torch, A, dev,
                     profile_root=root if "--profile" in argv else None)
+    # -- 7b. the actor-based RLlib algorithms, learner on the card ---------
+    rl = rllib_phase(torch, A, dev, root)
     print(f"north-star paths on {card}: gpt2-774m/mem2 step "
           f"{train_774m['step_ms']:.3f} ms, MFU {train_774m['mfu_pct']:.3f}%, "
           f"peak memory {train_774m['peak_gb']:.3f} GB; gpt2-1.5b (bench_15b)"
@@ -685,7 +725,10 @@ def main(argv):
           f"{train_15b['mfu_pct']:.3f}%, peak memory "
           f"{train_15b['peak_gb']:.3f} GB; ppo-atari-256 "
           f"{ppo['env_steps_s']:.1f} env-steps/s, an iteration "
-          f"{ppo['iteration_ms']:.4f} ms on CUDA events")
+          f"{ppo['iteration_ms']:.4f} ms on CUDA events; PPO-AtariSim "
+          f"(actor-based, CPU rollout) {rl['env_steps_s']:.1f} env-steps/s, "
+          f"rollout {rl['rollout_ms']:.1f} ms and learner "
+          f"{rl['learner_ms']:.1f} ms an iteration")
     print("other training paths on " + card + ": " + "; ".join(
         f"gpt2-355m seq {seq}: {r['tokens_s']:.1f} tokens/s, MFU "
         f"{r['mfu_pct']:.3f}%, peak memory {r['peak_gb']:.3f} GB"
@@ -1064,6 +1107,294 @@ def ppo_phase(torch, A, dev, profile_root=None):
     torch.cuda.empty_cache()
     print(f"ppo phase: {time.perf_counter() - t_phase:.3f} s wall")
     return {"env_steps_s": steps_s, "iteration_ms": replay_ms}
+
+
+RL_LSTM = {"use_lstm": True, "lstm_cell_size": 256,
+           "fcnet_hiddens": (256, 256)}
+
+
+def rl_configs():
+    """Phase 7b's runs: (name, config, iterations). PPO on AtariSim at
+    full width (84x84x4 frames, Nature CNN, 16 envs x 128 steps, the
+    default train batch 2048 and PPOConfig's defaults), recurrent PPO at
+    upstream RLlib's MODEL_DEFAULTS widths, A2C at its defaults with
+    (256, 256), IMPALA (feedforward and LSTM) and APPO at 8 batches an
+    iteration, and DQN at its defaults (iterations: until 500 updates, the
+    first target sync)."""
+    from ray_tpu_torch.rllib import (A2CConfig, APPOConfig, DQNConfig,
+                                     ImpalaConfig, PPOConfig)
+
+    return [
+        ("ppo_atari", PPOConfig().environment("AtariSim").rollouts(
+            num_envs_per_worker=16, rollout_fragment_length=128), 3),
+        ("ppo_lstm", PPOConfig().environment("RepeatPrevObs").rollouts(
+            num_envs_per_worker=16, rollout_fragment_length=64).training(
+                model=RL_LSTM), 2),
+        ("a2c", A2CConfig().training(model={"fcnet_hiddens": (256, 256)}),
+         3),
+        ("impala", ImpalaConfig().training(num_batches_per_iter=8), 2),
+        ("impala_lstm", ImpalaConfig().training(num_batches_per_iter=8,
+                                                model=RL_LSTM), 2),
+        ("appo", APPOConfig().training(num_batches_per_iter=8), 2),
+        ("dqn", DQNConfig(), None),
+    ]
+
+
+def rl_steps(name, cfg, iters):
+    """The env steps ``iters`` iterations of ``cfg`` must take."""
+    per = cfg.num_envs_per_worker * cfg.rollout_fragment_length
+    if name in ("impala", "impala_lstm", "appo"):
+        per *= cfg.num_batches_per_iter
+    return iters * per
+
+
+def rl_tensors(tree):
+    """Every tensor of nested tuples, lists and dicts, in order."""
+    from ray_tpu_torch.rllib.algorithm import tree_map
+
+    found = []
+    tree_map(found.append, tree)
+    return found
+
+
+def rl_replay(torch, update, args, dev):
+    """``update`` on copies of ``args`` on ``dev``: (the parameters after,
+    the metrics' tensors; the loss first), on the CPU."""
+    from ray_tpu_torch.rllib.algorithm import tree_map
+
+    args = tree_map(lambda t: t.to(dev, copy=True), args)
+    params = {k: v.requires_grad_() for k, v in args[0].items()}
+    out = update(params, *args[1:])
+    return ([t.detach().cpu() for t in rl_tensors(out[0])],
+            [t.detach().cpu() for t in rl_tensors(out[2:])])
+
+
+def rl_parity(torch, dev, update, args):
+    """One learner update on the card and on the CPU from the same inputs,
+    under full_fp32: (loss rel, parameters' L2 rel, CPU loss, card
+    loss)."""
+    from ray_tpu_torch.device import full_fp32
+
+    with full_fp32():
+        pg, mg = rl_replay(torch, update, args, dev)
+        pc, mc = rl_replay(torch, update, args, "cpu")
+    e_loss = abs(mg[0].item() - mc[0].item()) / abs(mc[0].item())
+    diff = torch.sqrt(sum(((a - b).double() ** 2).sum()
+                          for a, b in zip(pg, pc)))
+    e_par = (diff / torch.sqrt(sum((b.double() ** 2).sum()
+                                   for b in pc))).item()
+    return e_loss, e_par, mc[0].item(), mg[0].item()
+
+
+def rl_learner_checks(torch, dev, name, algo, update, args):
+    """The learner on the card against the CPU, from the inputs of the
+    run's first update (``args``). A2C, IMPALA, APPO and DQN: that update
+    (one optimizer step). PPO: one step on the first minibatch (rows, or
+    sequences for the recurrent net), then, for the fp32 nets, the whole
+    update (its loss is the last minibatch's, after every step before it:
+    TOL_RL_LOSS_MULTI); PPO-AtariSim's bf16 trunk also its ppo_loss
+    gradients at the recorded parameters, per leaf."""
+    from ray_tpu_torch.device import full_fp32
+    from ray_tpu_torch.rllib.ppo import (build_ppo_update,
+                                         build_ppo_update_recurrent,
+                                         ppo_loss)
+    from ray_tpu_torch.rllib.sample_batch import OBS
+
+    cfg = algo.config
+    bf16 = name == "ppo_atari"
+    tols = ((TOL_RL_LOSS_BF16, TOL_RL_PARAMS_BF16) if bf16
+            else (TOL_RL_LOSS, TOL_RL_PARAMS))
+    checks = []
+    if name.startswith("ppo"):
+        net = algo.workers.local_worker.policy.net
+        one = copy.copy(cfg)
+        one.num_sgd_iter = 1
+        batch, size = args[2], cfg.sgd_minibatch_size
+        if algo._recurrent:
+            step = build_ppo_update_recurrent(one, algo.optimizer, net)
+            seqs = max(1, size // batch[OBS].shape[0])
+            first = {k: v[:, :seqs] for k, v in batch.items()}
+        else:
+            step = build_ppo_update(one, algo.optimizer, net.apply)
+            first = {k: v[:size] for k, v in batch.items()}
+        checks.append(("one SGD step", step,
+                       (args[0], args[1], first, args[3])) + tols)
+        if not bf16:
+            checks.append((f"the whole update ({cfg.num_sgd_iter} epochs)",
+                           update, args, TOL_RL_LOSS_MULTI, TOL_RL_PARAMS))
+    else:
+        checks.append(("the update (one step)", update, args) + tols)
+    for label, fn, fn_args, tol_loss, tol_par in checks:
+        e_loss, e_par, l_cpu, l_card = rl_parity(torch, dev, fn, fn_args)
+        print(f"check rllib {name}: {label}, card vs CPU (full_fp32): loss "
+              f"{l_card:.7f} vs {l_cpu:.7f}, rel {e_loss:.3e} (tol "
+              f"{tol_loss}); parameters rel {e_par:.3e} (tol {tol_par})")
+        require(e_loss < tol_loss and e_par < tol_par,
+                f"{name}: {label} on the card matches the CPU")
+    if not bf16:
+        return
+    from ray_tpu_torch.rllib.policy import forward_conv
+
+    mb = {k: v[:cfg.sgd_minibatch_size] for k, v in args[2].items()}
+    grads = {}
+    for tag, d in (("card", dev), ("cpu", "cpu")):
+        p = {k: v.to(d, copy=True).requires_grad_()
+             for k, v in args[0].items()}
+        with full_fp32():
+            loss, _ = ppo_loss(p, {k: v.to(d) for k, v in mb.items()},
+                               cfg.clip_param, cfg.vf_clip_param,
+                               cfg.vf_loss_coeff, cfg.entropy_coeff,
+                               forward_conv)
+            g = torch.autograd.grad(loss, list(p.values()))
+        grads[tag] = dict(zip(p, (t.cpu() for t in g)))
+    e_grad = {k: rel_err(grads["card"][k], v)
+              for k, v in grads["cpu"].items()}
+    worst = max(e_grad, key=e_grad.get)
+    print(f"check rllib {name}: gradients of ppo_loss at the recorded "
+          f"parameters on {cfg.sgd_minibatch_size} frames, card vs CPU "
+          f"(bf16 trunk): worst {worst} rel {e_grad[worst]:.3e} (tol "
+          f"{TOL_RL_GRAD_BF16}, conv biases {TOL_RL_GRAD_BF16_CONV_BIAS})")
+    for k, e in e_grad.items():
+        conv_bias = k.startswith("conv") and k.endswith("_b")
+        require(e < (TOL_RL_GRAD_BF16_CONV_BIAS if conv_bias
+                     else TOL_RL_GRAD_BF16),
+                f"{name}: gradient {k} on the card")
+
+
+def rllib_phase(torch, A, dev, root):
+    """Phase 7b: the actor-based algorithms through their public entry
+    points (``XConfig()...build()``, no device: the learner on the card,
+    the rollout workers' policies on the CPU), locally. Gates: learner
+    parameters and optimizer state on the card and the worker's policy on
+    the CPU; every metric finite and timesteps_total as the settings
+    imply; one learner update of each, replayed on the card and the CPU
+    from the same inputs, within the TOL_RL_* tolerances; PPO-AtariSim's
+    save/restore bit-identical on the card; no attention kernel launched.
+    Prints PPO-AtariSim's env-steps/s, rollout and learner ms an iteration
+    (CUDA events around the update) and each run's wall seconds."""
+    from ray_tpu_torch.rllib.algorithm import tree_map
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    out = {}
+    A.reset_launch_counts()
+    for name, cfg, iters in rl_configs():
+        t0 = time.perf_counter()
+        algo = cfg.build()
+        calls, update = [], algo._update
+        learner_ms, rollout_ms = [], []
+
+        def recorded(*args, update=update, calls=calls, ms=learner_ms):
+            if not calls:
+                calls.append(tree_map(lambda t: t.detach().cpu().clone(),
+                                      args))
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            result = update(*args)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            return result
+
+        algo._update = recorded
+        sample = algo.workers.sample
+
+        def timed_sample(*args, sample=sample, ms=rollout_ms):
+            t = time.perf_counter()
+            result = sample(*args)
+            ms.append((time.perf_counter() - t) * 1e3)
+            return result
+
+        algo.workers.sample = timed_sample
+        results, walls = [], []
+        i = 0
+        while True:
+            t = time.perf_counter()
+            results.append(algo.train())
+            walls.append(time.perf_counter() - t)
+            i += 1
+            if iters is not None and i == iters:
+                break
+            if iters is None and (results[-1]["num_learner_updates"]
+                                  >= cfg.target_network_update_freq):
+                break
+            require(i < 200, f"{name}: learner updates within 200 iterations")
+        wall = time.perf_counter() - t0
+        last = results[-1]
+        bad = {k: v for r in results for k, v in r.items()
+               if isinstance(v, float) and not math.isfinite(v)}
+        require(not bad, f"{name}: finite metrics ({bad})")
+        require(last["timesteps_total"] == rl_steps(name, cfg, i),
+                f"{name}: timesteps_total {last['timesteps_total']} is "
+                f"{rl_steps(name, cfg, i)}")
+        learner = rl_tensors(algo.params) + rl_tensors(algo.opt_state)
+        if name == "dqn":
+            learner += rl_tensors(algo.target_params)
+            require(last["loss"] is not None and last["num_learner_updates"]
+                    >= 2, "dqn: learner updates ran")
+        policy = algo.workers.local_worker.policy
+        require(all(t.device.type == "cuda" for t in learner),
+                f"{name}: every learner parameter and optimizer-state "
+                "tensor on cuda")
+        require(policy.device.type == "cpu" and all(
+            p.device.type == "cpu" for p in policy.params.values()),
+            f"{name}: the rollout policy on the CPU")
+        # -- the learner, card against CPU ---------------------------------
+        kind = policy.net.kind if hasattr(policy, "net") else "q-mlp"
+        rl_learner_checks(torch, dev, name, algo, update, calls[0])
+        n_params = sum(p.numel() for p in algo.params.values())
+        print(f"rllib {name} on {card}: {i} iterations, {kind} policy, "
+              f"{n_params} parameters, timesteps_total "
+              f"{last['timesteps_total']}, {len(learner_ms)} learner "
+              f"updates; {wall:.3f} s wall (train() "
+              + ", ".join(f"{w:.3f}" for w in walls) + " s); last "
+              + json.dumps({k: v for k, v in last.items()
+                            if k not in ("time_this_iter_s",)}))
+        if name == "ppo_atari":
+            # The first iteration warms up; the rest are timed.
+            steps = sum(r["timesteps_this_iter"] for r in results[1:])
+            out = {"env_steps_s": steps / sum(walls[1:]),
+                   "rollout_ms": sum(rollout_ms[1:]) / (i - 1),
+                   "learner_ms": sum(learner_ms[1:]) / (i - 1)}
+            print(f"rllib ppo_atari on {card}: {out['env_steps_s']:.1f} "
+                  f"env-steps/s over {i - 1} timed iterations of "
+                  f"{results[-1]['timesteps_this_iter']} steps; rollout "
+                  f"{out['rollout_ms']:.1f} ms (host clock, CPU policy), "
+                  f"learner {out['learner_ms']:.1f} ms (CUDA events, "
+                  f"{cfg.num_sgd_iter} epochs x "
+                  f"{last['timesteps_this_iter'] // cfg.sgd_minibatch_size}"
+                  " minibatches) an "
+                  "iteration; rollout by iteration "
+                  + ", ".join(f"{m:.1f}" for m in rollout_ms)
+                  + " ms, learner " + ", ".join(f"{m:.1f}" for m in
+                                                learner_ms) + " ms")
+            ckpt = os.path.join(root, "chiprun_out", "rllib_ppo_atari_ckpt")
+            path = algo.save(ckpt)
+            fresh = cfg.build()
+            fresh.restore(path)
+            same = all(torch.equal(fresh.params[k], v)
+                       for k, v in algo.params.items())
+            on_card = all(p.device.type == "cuda"
+                          for p in fresh.params.values())
+            print(f"check rllib ppo_atari save/restore: learner weights "
+                  f"bit-identical {same}, on the card {on_card}")
+            require(same and on_card, "ppo_atari save/restore")
+            fresh.stop()
+            os.remove(path)
+            os.rmdir(ckpt)
+        algo.stop()
+        del algo, calls
+        torch.cuda.empty_cache()
+    launches = {f.__name__: f.launches
+                for f in A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS}
+    print(f"rllib phase: attention kernel launches {launches} (no attention "
+          "on this path)")
+    require(all(n == 0 for n in launches.values()),
+            "no attention kernel on the RLlib path")
+    print(f"phase 7b (rllib): {time.perf_counter() - t_phase:.3f} s wall; "
+          f"{card}")
+    return out
 
 
 def profile_ppo(torch, algo, root):

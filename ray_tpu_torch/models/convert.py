@@ -10,10 +10,13 @@ GPT-2's ``router_w`` ``[L, d, E]``, ``moe_in_w`` ``[L, E, d, m]`` and
 are numpy arrays of an extension dtype named ``bfloat16``; they cross as
 their ``uint16`` bits and are viewed as ``torch.bfloat16``, bit for bit.
 
-The PPO policies (``rllib/policy.py``) and ResNet's parameters and batch
-statistics are flat dicts under the same names on both sides; conv
-weights are HWIO there and OIHW here, and the PPO dense rows keep JAX's
-(h, w, c) order.
+The RL networks and ResNet's parameters and batch statistics are flat
+dicts under the same names on both sides; conv weights are HWIO there and
+OIHW here, and the conv policies' dense rows keep JAX's (h, w, c) order.
+The ``ppo_*`` functions carry every RL tree: the MLP and conv policies,
+the catalog's LSTM and conv-LSTM (``lstm_w`` ``[feat + cell, 4 * cell]``
+with its gates in the order i, f, g, o, which the port's cell keeps, so
+it crosses as it is) and DQN's Q-net.
 """
 
 from __future__ import annotations
@@ -127,15 +130,16 @@ def _is_conv(name: str) -> bool:
 
 
 def ppo_params_from_numpy(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX policy params (MLP or conv; numpy leaves) -> the port's dict."""
+    """JAX RL params (MLP, conv, LSTM, conv-LSTM or Q-net; numpy leaves)
+    -> the port's dict."""
     return {name: (tensor_from_numpy(np.transpose(arr, (3, 2, 0, 1)))
                    if _is_conv(name) else tensor_from_numpy(arr))
             for name, arr in tree.items()}
 
 
 def ppo_tree_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict:
-    """The port's policy params (or their gradients) -> the JAX layout as
-    fp32 numpy."""
+    """The port's RL params (or their gradients) -> the JAX layout as fp32
+    numpy."""
     return {name: (tensor_to_numpy(t.permute(2, 3, 1, 0)) if _is_conv(name)
                    else tensor_to_numpy(t))
             for name, t in params.items()}

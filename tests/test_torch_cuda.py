@@ -586,3 +586,93 @@ def test_cuda_moe_layer_matches_cpu(cuda):
     assert torch.equal(ic, ig)
     assert (og - oc).abs().max() / oc.abs().max() < 1e-4
     assert abs(ag.item() - ac.item()) < 1e-4 * abs(ac.item())
+
+
+# -- the actor-based RLlib learners -------------------------------------------
+
+def _rl_config(case):
+    """A small configuration of each actor-based algorithm (local mode)."""
+    from ray_tpu_torch.rllib import (A2CConfig, APPOConfig, DQNConfig,
+                                     ImpalaConfig, PPOConfig)
+
+    lstm = {"use_lstm": True, "lstm_cell_size": 32, "fcnet_hiddens": (32,)}
+    if case in ("ppo", "ppo_lstm"):
+        cfg = PPOConfig().rollouts(num_envs_per_worker=4,
+                                   rollout_fragment_length=32)
+        cfg.training(sgd_minibatch_size=32, num_sgd_iter=2)
+        if case == "ppo_lstm":
+            cfg.environment("RepeatPrevObs").training(model=lstm)
+        return cfg
+    if case == "a2c":
+        return A2CConfig().rollouts(num_envs_per_worker=4)
+    if case in ("impala", "impala_lstm", "appo"):
+        cfg = (ImpalaConfig() if case != "appo" else APPOConfig())
+        cfg.rollouts(num_envs_per_worker=4, rollout_fragment_length=16)
+        cfg.training(num_batches_per_iter=2)
+        if case == "impala_lstm":
+            cfg.training(model=lstm)
+        return cfg
+    cfg = DQNConfig().rollouts(num_envs_per_worker=4,
+                               rollout_fragment_length=16)
+    cfg.policy_hidden = (64, 64)
+    return cfg.training(learning_starts=64, num_updates_per_iter=2,
+                        train_batch_size=32)
+
+
+def _tensors(tree):
+    """Every tensor of nested tuples, lists and dicts, in order."""
+    from ray_tpu_torch.rllib.algorithm import tree_map
+
+    found = []
+    tree_map(found.append, tree)
+    return found
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ppo", "ppo_lstm", "a2c", "impala",
+                                  "impala_lstm", "appo", "dqn"])
+def test_cuda_learner_update_matches_cpu(cuda, case):
+    """``build()`` with no device puts the learner on the card (every
+    parameter and optimizer-state tensor) and the worker's policy on the
+    CPU; the first learner update of a ``train()``, replayed from the same
+    parameters, optimizer state, batch and key on the card and on the CPU
+    (fp32): the loss within 1e-5 relative, the updated parameters within
+    1e-4 of the parameters' norm (the L2 norm of the difference over all
+    leaves; Adam's first steps move a parameter by about lr whatever its
+    gradient's size, so an element whose gradient is near zero may step
+    either way)."""
+    from ray_tpu_torch.rllib.algorithm import tree_map
+
+    algo = _rl_config(case).build()
+    calls, update = [], algo._update
+
+    def recorded(*args):
+        if not calls:
+            calls.append(tree_map(lambda t: t.detach().cpu().clone(), args))
+        return update(*args)
+
+    algo._update = recorded
+    for _ in range(8):
+        result = algo.train()
+        if calls:
+            break
+    assert calls and result["timesteps_total"] > 0
+    assert all(t.device.type == "cuda" for t in
+               _tensors(algo.params) + _tensors(algo.opt_state))
+    assert all(p.device.type == "cpu" for p in
+               algo.workers.local_worker.policy.params.values())
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        args = tree_map(lambda t: t.to(dev, copy=True), calls[0])
+        params = {k: v.requires_grad_() for k, v in args[0].items()}
+        out = update(params, *args[1:])
+        outs[dev] = [t.detach().cpu() for t in _tensors(out[0])], [
+            t.detach().cpu() for t in _tensors(out[2:])]
+    (pc, mc), (pg, mg) = outs["cpu"], outs["cuda"]
+    diff = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(pg, pc)))
+    norm = torch.sqrt(sum((b ** 2).sum() for b in pc))
+    assert diff / norm < 1e-4
+    loss_c, loss_g = mc[0], mg[0]
+    assert loss_c.ndim == 0
+    assert abs(loss_g.item() - loss_c.item()) <= 1e-5 * abs(loss_c.item())
+    algo.stop()
