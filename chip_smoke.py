@@ -123,9 +123,34 @@ Phases; any failure exits non-zero:
      save/restore bit-identical on the card; no attention kernel. Prints
      PPO-AtariSim's env-steps/s, rollout and learner ms an iteration and
      each run's wall seconds (~30-90 s);
+ 7c. RLlib's other algorithms through ``XConfig()...build()`` (no device:
+     the learner on the card, the workers' policies on the CPU), each at
+     its config's defaults: SAC and TD3 on FastPendulum until 64 updates
+     (SAC 17 iterations, TD3 9, half of TD3's with the delayed actor
+     step); CQL for 4 iterations of 64 updates (behaviour cloning until
+     update 200, then SAC's objective) on a Pendulum log the phase writes
+     with the port's JsonWriter (16 envs x 1,000 uniform steps in [-2,
+     2]); MARWIL (beta 1) and BC, 2 iterations each, on 4,096 CartPole
+     steps logged from the port's PPO after 15 iterations (the recipe of
+     tests/test_bc_td3.py), then DM and DR on that log, env-major, for
+     MARWIL's policy, the fitted-Q model on the card; Ape-X (2 workers, 2
+     shards) on InlineRuntime, this script's synchronous in-process
+     runtime, until 2 iterations past learning_starts; ES and ARS, 2
+     iterations each, locally on the CPU. Gates: learner parameters and
+     optimizer state on the card, worker policies on the CPU; every
+     metric finite and timesteps_total as the settings imply; recorded
+     learner updates (SAC's first; TD3's first with and without its actor
+     step; CQL's first in each phase; MARWIL's, BC's and Ape-X's DQN's
+     first) replayed on the card and the CPU from the same inputs under
+     full_fp32, within phase 7b's TOL_RL_LOSS (the primary loss relative,
+     the others relative to max(|value|, 1)) and TOL_RL_PARAMS;
+     FittedQModel's fit (500 Adam steps) on the card against the CPU from
+     the same weights within TOL_FQE_CARD; no attention kernel launched.
+     Prints SAC's and TD3's env-steps/s, each learner's ms an update
+     (CUDA events), DM's and DR's estimates and each run's wall seconds;
   8. prints the kernels as one JSON line (each entry also with its
-     launches a step on phases 5h and 5i and a rank on phase 5j's
-     ring-flash and Ulysses), the card again, and last
+     launches a step on phases 5h and 5i, a rank on phase 5j's
+     ring-flash and Ulysses, and on phase 7c), the card again, and last
      {"ok": true, "device": {...}}.
 
 Between phases 5 and 6 it also trains gpt2-774m at bench.py's configuration
@@ -268,6 +293,11 @@ TOL_RL_LOSS_BF16 = 2e-2
 TOL_RL_PARAMS_BF16 = 1e-2
 TOL_RL_GRAD_BF16 = 2e-2
 TOL_RL_GRAD_BF16_CONV_BIAS = 1e-1
+# Phase 7c: FittedQModel's fit (20 backups x 25 Adam steps, 4,088 rows) on
+# the card against the CPU from the same weights, relative: its Q-values
+# over their largest, its weights' L2 over theirs, its final loss (an H100
+# read 3.2e-7 at most).
+TOL_FQE_CARD = 1e-5
 # Fault C3's phase: llama-tiny's loss at this batch and sequence length.
 C3_BATCH, C3_SEQ = 2, 64
 # bench.py's bench_ppo: envs, rollout length, epochs, minibatches.
@@ -664,25 +694,25 @@ def main(argv):
     print(f"gpt2-124m phase: {time.perf_counter() - t_phase:.3f} s wall")
     prof = root if "--profile" in argv else None
 
-    # -- 5c. gpt2-774m at bench.py's configuration -----------------------------
+    # -- 5c. gpt2-774m at bench.py's configuration ----------------------------
     launches_774m, train_774m = gpt2_774m_phase(torch, A, profile_root=prof)
 
-    # -- 5d. gpt2-1.5b at bench_15b's configuration ----------------------------
+    # -- 5d. gpt2-1.5b at bench_15b's configuration ---------------------------
     train_15b = adafactor_gpt2(torch, A, "gpt2-1.5b", 1024, 4, 2, 5,
                                profile_root=prof)
 
-    # -- 5e. bench_long_context's three points ---------------------------------
+    # -- 5e. bench_long_context's three points --------------------------------
     long_ctx = {}
     for seq, batch in ((4096, 4), (8192, 2), (16384, 1)):
         long_ctx[seq] = adafactor_gpt2(
             torch, A, "gpt2-355m", seq, batch, 2, 4,
             profile_root=prof if seq == 16384 else None)
 
-    # -- 5f. ViT-B/16 and ResNet-18 ----------------------------------------------
+    # -- 5f. ViT-B/16 and ResNet-18 -------------------------------------------
     train_vit = vit_phase(torch, A, profile_root=prof)
     train_resnet = resnet_phase(torch)
 
-    # -- 5g. fault C3: an fp32, head_dim-16 model on the card ------------------
+    # -- 5g. fault C3: an fp32, head_dim-16 model on the card -----------------
     c3_launches = c3_phase(torch, A, dev)
 
     # -- 5h-5j. the parallel layer: a mesh of one (gpt2-124m, MoE GPT-2),
@@ -706,11 +736,11 @@ def main(argv):
           f", MoE ep=4 worst "
           f"{max(r['moe_ep']['max_abs_err'] for r in sp4):.3e}")
 
-    # -- 6. llama-1b serving ----------------------------------------------------
+    # -- 6. llama-1b serving --------------------------------------------------
     llama_k1, tp2_ref = serve_phase(
         torch, A, dev, profile_root=root if "--profile" in argv else None)
 
-    # -- 6b. llama-1b tp-sharded: two ranks on the card -------------------------
+    # -- 6b. llama-1b tp-sharded: two ranks on the card -----------------------
     tp2_phase(torch, tp2_ref)
 
     # -- 7. on-device PPO ---------------------------------------------------
@@ -718,6 +748,8 @@ def main(argv):
                     profile_root=root if "--profile" in argv else None)
     # -- 7b. the actor-based RLlib algorithms, learner on the card ---------
     rl = rllib_phase(torch, A, dev, root)
+    # -- 7c. SAC, TD3, CQL, MARWIL/BC, DM/DR, Ape-X, ES/ARS -----------------
+    rl7c = offpolicy_phase(torch, A, dev, root)
     print(f"north-star paths on {card}: gpt2-774m/mem2 step "
           f"{train_774m['step_ms']:.3f} ms, MFU {train_774m['mfu_pct']:.3f}%, "
           f"peak memory {train_774m['peak_gb']:.3f} GB; gpt2-1.5b (bench_15b)"
@@ -736,6 +768,13 @@ def main(argv):
         + f"; vit-b16: {train_vit['images_s']:.1f} images/s, MFU "
         f"{train_vit['mfu_pct']:.3f}%; resnet18-cifar: "
         f"{train_resnet['images_s']:.1f} images/s")
+    print("RLlib's other algorithms on " + card + ": " + "; ".join(
+        f"{name} {r['wall_s']:.3f} s"
+        + (f", {r['env_steps_s']:.1f} env-steps/s" if "env_steps_s" in r
+           else "")
+        + (f", {r['update_ms']:.3f} ms an update" if r.get("update_ms")
+           else "")
+        for name, r in rl7c.items() if "wall_s" in r))
 
     # -- 8. the record --------------------------------------------------------
     kernels = []
@@ -795,6 +834,7 @@ def main(argv):
             if name == "flash_fwd_general" else 0 for r in sp4]
         k["launches_ulysses_sp4"] = [r["ulysses"]["launches"].get(name, 0)
                                      for r in sp4]
+        k["launches_rllib_7c"] = rl7c["launches"][name]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
@@ -965,7 +1005,7 @@ def ppo_phase(torch, A, dev, profile_root=None):
               f"bit-equal {same}")
         require(same, f"threefry {name} on the card")
 
-    # -- env steps on the card against the CPU ---------------------------------
+    # -- env steps on the card against the CPU --------------------------------
     envs = {"card": ondevice.atari_sim(N, dev), "cpu": ondevice.atari_sim(N, cpu)}
     key = trandom.prng_key(99)
     states = {}
@@ -1394,6 +1434,563 @@ def rllib_phase(torch, A, dev, root):
             "no attention kernel on the RLlib path")
     print(f"phase 7b (rllib): {time.perf_counter() - t_phase:.3f} s wall; "
           f"{card}")
+    return out
+
+
+class InlineRuntime:
+    """A synchronous in-process actor runtime, for phase 7c's Ape-X:
+    ``remote(cls)`` builds the actor in this process, and
+    ``actor.method.remote(...)`` runs the method at once and returns a ref
+    to its result; ``get``, ``put``, ``wait`` (every ref is ready) and
+    ``kill``. It is the ``runtime=`` interface the port takes; this script
+    imports no runtime of the JAX package."""
+
+    class Ref:
+        def __init__(self, value):
+            self.value = value
+
+    class Actor:
+        def __init__(self, runtime, obj):
+            self._runtime, self._obj, self._killed = runtime, obj, False
+
+        def __getattr__(self, name):
+            if self._killed:
+                raise RuntimeError(f"actor {type(self._obj).__name__} killed")
+            return InlineRuntime.Method(self._runtime,
+                                        getattr(self._obj, name))
+
+    class Method:
+        def __init__(self, runtime, fn):
+            self._runtime, self._fn = runtime, fn
+
+        def remote(self, *args, **kwargs):
+            args, kwargs = self._runtime.resolve(args, kwargs)
+            return InlineRuntime.Ref(self._fn(*args, **kwargs))
+
+    class ActorClass:
+        def __init__(self, runtime, cls):
+            self._runtime, self._cls = runtime, cls
+
+        def options(self, **_):
+            return self
+
+        def remote(self, *args, **kwargs):
+            args, kwargs = self._runtime.resolve(args, kwargs)
+            return InlineRuntime.Actor(self._runtime,
+                                       self._cls(*args, **kwargs))
+
+    def resolve(self, args, kwargs):
+        """Refs among the arguments become their values, as a runtime
+        resolves top-level refs."""
+        value = lambda a: a.value if isinstance(a, InlineRuntime.Ref) else a
+        return ([value(a) for a in args],
+                {k: value(v) for k, v in kwargs.items()})
+
+    def remote(self, cls):
+        return InlineRuntime.ActorClass(self, cls)
+
+    def get(self, refs, timeout=None):
+        if isinstance(refs, list):
+            return [r.value for r in refs]
+        return refs.value
+
+    def put(self, value):
+        return InlineRuntime.Ref(value)
+
+    def wait(self, refs, num_returns=1, timeout=None):
+        return list(refs[:num_returns]), list(refs[num_returns:])
+
+    def kill(self, actor):
+        actor._killed = True
+
+
+def rl7c_metrics(name, out):
+    """(the update's primary loss, its other losses) from one learner
+    update's outputs."""
+    if name in ("sac", "td3"):
+        return out[2]["critic_loss"], [out[2]["actor_loss"]]
+    if name.startswith("cql"):
+        return out[4]["critic_loss"], [out[4]["actor_loss"],
+                                       out[4]["td_loss"]]
+    if name in ("marwil", "bc"):
+        return out[2], [out[3]["policy_loss"], out[3]["vf_loss"],
+                        out[3]["adv_norm"]]
+    return out[2], []  # Ape-X: DQN's (params, opt_state, loss, td)
+
+
+def rl7c_replay(torch, update, args, dev):
+    """``update`` on copies of the recorded ``args`` on ``dev``: (the
+    parameters after, on the CPU; the update's outputs)."""
+    from ray_tpu_torch.rllib.algorithm import tree_map
+    from ray_tpu_torch.rllib.algorithm import tree_leaves
+
+    args = tree_map(lambda t: t.to(dev, copy=True), args)
+    tree_map(lambda t: t.requires_grad_() if t.is_floating_point() else t,
+             args[0])
+    out = update(*args)
+    return [t.detach().cpu() for t in tree_leaves(out[0])], out
+
+
+def rl7c_parity(torch, dev, name, update, args, label):
+    """One recorded learner update replayed on the card and on the CPU under
+    full_fp32: the primary loss relative (TOL_RL_LOSS), the other losses
+    relative to max(|CPU value|, 1) (an actor loss can sit near 0), the
+    parameters as phase 7b's L2 over their norm (TOL_RL_PARAMS)."""
+    from ray_tpu_torch.device import full_fp32
+
+    with full_fp32():
+        pg, og = rl7c_replay(torch, update, args, dev)
+        pc, oc = rl7c_replay(torch, update, args, "cpu")
+    lg, rest_g = rl7c_metrics(name, og)
+    lc, rest_c = rl7c_metrics(name, oc)
+    lg, lc = float(lg), float(lc)
+    e_loss = abs(lg - lc) / max(abs(lc), 1e-12)
+    e_rest = max([abs(float(a) - float(b)) / max(abs(float(b)), 1.0)
+                  for a, b in zip(rest_g, rest_c)] or [0.0])
+    diff = torch.sqrt(sum(((a - b).double() ** 2).sum()
+                          for a, b in zip(pg, pc)))
+    e_par = (diff / torch.sqrt(sum((b.double() ** 2).sum()
+                                   for b in pc))).item()
+    print(f"check rllib {name}: {label}, card vs CPU (full_fp32): loss "
+          f"{lg:.7f} vs {lc:.7f}, rel {e_loss:.3e} (tol {TOL_RL_LOSS}); "
+          f"other losses {e_rest:.3e} (tol {TOL_RL_LOSS}); parameters rel "
+          f"{e_par:.3e} (tol {TOL_RL_PARAMS})")
+    require(e_loss < TOL_RL_LOSS and e_rest < TOL_RL_LOSS
+            and e_par < TOL_RL_PARAMS,
+            f"{name}: {label} on the card matches the CPU")
+    return {"loss_rel": e_loss, "other_rel": e_rest, "params_rel": e_par}
+
+
+def rl7c_profile(torch, dev, name, update, args, key):
+    """One recorded learner update replayed on the card under
+    torch.profiler: its kernels (and copies), their device ms and the
+    update's host ms to a synchronise, so the card's idle share; then the
+    same for the update's key work alone (a split and two normal draws of
+    the batch's actions, as SAC's update makes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch import random as trandom
+    from ray_tpu_torch.rllib.algorithm import tree_map
+
+    def fresh():
+        copy = tree_map(lambda t: t.to(dev, copy=True), args)
+        tree_map(lambda t: t.requires_grad_() if t.is_floating_point()
+                 else t, copy[0])
+        return copy
+
+    def draws():
+        keys = trandom.split(key)
+        shape = (args[2]["actions"].shape[0], args[2]["actions"].shape[1])
+        trandom.normal(trandom.take(keys, 0), shape)
+        trandom.normal(trandom.take(keys, 1), shape)
+
+    out = {}
+    for label, fn in (("update", lambda a: update(*a)),
+                      ("key split + 2 normal draws", lambda a: draws())):
+        fn(fresh())  # warm
+        copy = fresh()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn(copy)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t) * 1e3
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.device_time_total for e in events) / 1e3
+        out[label] = {"kernels": len(events), "device_ms": dev_ms,
+                      "host_ms": host_ms}
+        print(f"profile rllib {name}: {label}: {len(events)} kernels and "
+              f"copies, {dev_ms:.3f} ms of device time in {host_ms:.3f} ms "
+              f"to a synchronise (the card idle "
+              f"{100 * (1 - dev_ms / host_ms):.1f}%)")
+    return out
+
+
+def rl7c_record(torch, algo, key_of=lambda args: 0):
+    """Wrap ``algo._update``: CUDA-event ms of every call, and a CPU copy
+    of the first call's arguments of each kind (``key_of(args)``: TD3's
+    actor flag, CQL's phase). Returns (the original update, the records
+    by kind, the ms list)."""
+    from ray_tpu_torch.rllib.algorithm import tree_map
+
+    update, calls, ms = algo._update, {}, []
+
+    def recorded(*args):
+        kind = key_of(args)
+        if kind not in calls:
+            calls[kind] = tree_map(lambda t: t.detach().cpu().clone(), args)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        result = update(*args)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        return result
+
+    algo._update = recorded
+    return update, calls, ms
+
+
+def rl7c_on_card(name, *trees):
+    """Every tensor of ``trees`` (parameters, optimizer states) on cuda."""
+    devices = {t.device.type for tree in trees for t in rl_tensors(tree)}
+    require(devices == {"cuda"}, f"{name}: every learner parameter and "
+            f"optimizer-state tensor on cuda (found {sorted(devices)})")
+
+
+def rl7c_policy_on_cpu(name, policy):
+    from ray_tpu_torch.rllib.algorithm import tree_leaves
+
+    require(policy.device.type == "cpu" and all(
+        p.device.type == "cpu" for p in tree_leaves(policy.params)),
+        f"{name}: the rollout policy on the CPU")
+
+
+def rl7c_finite(name, results):
+    bad = {k: v for r in results for k, v in r.items()
+           if isinstance(v, float) and not math.isfinite(v)}
+    require(not bad, f"{name}: finite metrics ({bad})")
+
+
+def rl7c_train(name, algo, until, limit=100):
+    """``train()`` until ``until(result)``: (results, wall s of each)."""
+    results, walls = [], []
+    while True:
+        t = time.perf_counter()
+        results.append(algo.train())
+        walls.append(time.perf_counter() - t)
+        if until(results[-1]):
+            return results, walls
+        require(len(results) < limit, f"{name}: done within {limit} "
+                "iterations")
+
+
+def rl7c_datasets(torch, root):
+    """Phase 7c's datasets, written with the port's JsonWriter under
+    chiprun_out/rllib_7c_data: Pendulum, 16 envs x 1,000 steps of uniform
+    actions in [-2, 2] (CQL's); CartPole, 4,096 steps logged time-major
+    from the port's PPO after 15 iterations (MARWIL's and BC's, with the
+    behaviour log-probabilities for DM and DR)."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import (FastPendulum, JsonWriter, PPOConfig,
+                                     SampleBatch)
+    from ray_tpu_torch.rllib.sample_batch import (ACTIONS, DONES, LOGPS,
+                                                  NEXT_OBS, OBS, REWARDS)
+
+    base = os.path.join(root, "chiprun_out", "rllib_7c_data")
+    paths = {k: os.path.join(base, k) for k in ("pendulum", "cartpole")}
+    env = FastPendulum(num_envs=16, seed=0)
+    rng = np.random.default_rng(0)
+    writer = JsonWriter(paths["pendulum"])
+    obs = env.vector_reset()
+    for _ in range(1000):
+        acts = rng.uniform(-2, 2, size=(16, 1)).astype(np.float32)
+        nobs, rews, dones, _ = env.vector_step(acts)
+        writer.write(SampleBatch({OBS: obs.copy(), ACTIONS: acts,
+                                  REWARDS: rews, NEXT_OBS: nobs.copy(),
+                                  DONES: dones}))
+        obs = nobs
+    writer.close()
+    algo = (PPOConfig().environment("FastCartPole")
+            .rollouts(num_envs_per_worker=8, rollout_fragment_length=32)
+            .training(train_batch_size=256, num_sgd_iter=6)
+            .debugging(seed=0).build())
+    for _ in range(15):
+        algo.train()
+    worker = algo.workers.local_worker
+    writer = JsonWriter(paths["cartpole"])
+    logged = 0
+    while logged < 4000:
+        batch = worker.sample(32)
+        cols = {k: np.asarray(batch[k])
+                for k in (OBS, ACTIONS, REWARDS, DONES, LOGPS)}
+        writer.write(SampleBatch(cols))
+        logged += cols[REWARDS].size
+    writer.close()
+    behaviour = worker.episode_stats()["episode_reward_mean"]
+    algo.stop()
+    del algo
+    return base, paths, behaviour
+
+
+def rl7c_ope(torch, dev, card, path, policy):
+    """DM and DR with the fitted-Q model on the card, on the CartPole log
+    turned env-major (each env's column an episode sequence, cut at its
+    end) and scored for ``policy`` (the trained MARWIL's, on the CPU); then
+    FittedQModel's fit on the card against the CPU from the same weights
+    (TOL_FQE_CARD)."""
+    import numpy as np
+
+    from ray_tpu_torch.device import full_fp32
+    from ray_tpu_torch.rllib import (DirectMethod, DoublyRobust, JsonReader,
+                                     SampleBatch)
+    from ray_tpu_torch.rllib.offline import FittedQModel
+    from ray_tpu_torch.rllib.sample_batch import (ACTIONS, DONES, LOGPS,
+                                                  NEXT_OBS, OBS, REWARDS)
+
+    data = JsonReader(path).read_all()  # [T, N, ...], time-major
+    steps = data[REWARDS].shape[0] - 1
+
+    def env_major(col, start=0):
+        col = np.asarray(col)[start:start + steps]
+        return np.swapaxes(col, 0, 1).reshape((-1,) + col.shape[2:])
+
+    dones = np.asarray(data[DONES])[:steps].copy()
+    dones[-1] = True  # each env's sequence ends where the log does
+    batch = SampleBatch({OBS: env_major(data[OBS]),
+                         NEXT_OBS: env_major(data[OBS], 1),
+                         ACTIONS: env_major(data[ACTIONS]),
+                         REWARDS: env_major(data[REWARDS]),
+                         DONES: np.swapaxes(dones, 0, 1).reshape(-1),
+                         LOGPS: env_major(data[LOGPS])})
+
+    @torch.no_grad()
+    def probs(obs):
+        logits, _ = policy.net.apply(policy.params, torch.as_tensor(
+            np.asarray(obs, np.float32)))
+        return torch.softmax(logits.double(), -1).numpy()
+
+    def logp(obs, actions):
+        p = probs(obs)
+        return np.log(p[np.arange(len(actions)),
+                        np.asarray(actions).astype(np.int64)])
+
+    out = {}
+    for cls in (DirectMethod, DoublyRobust):
+        t = time.perf_counter()
+        est = cls(logp, target_probs_fn=probs, num_actions=2).estimate(batch)
+        out[cls.__name__] = dict(est, wall_s=time.perf_counter() - t)
+        require(all(math.isfinite(v) for v in est.values()),
+                f"{cls.__name__}: finite estimate")
+        print(f"rllib {cls.__name__} on {card}: v_behavior "
+              f"{est['v_behavior']:.4f}, v_target {est['v_target']:.4f} "
+              f"({len(batch[REWARDS])} rows; fitted-Q on the card) in "
+              f"{out[cls.__name__]['wall_s']:.3f} s")
+    obs = np.asarray(batch[OBS], np.float32)
+    args = (obs, batch[ACTIONS], batch[REWARDS], batch[NEXT_OBS],
+            batch[DONES], probs(batch[NEXT_OBS]), 0.99)
+    models = {"card": FittedQModel(4, 2, device=dev),
+              "cpu": FittedQModel(4, 2, device="cpu")}
+    models["card"].set_weights(models["cpu"].get_weights())
+    require(all(p.device.type == "cuda" for layer in models["card"].params
+                for p in layer.values()), "FittedQModel on the card")
+    fit, q = {}, {}
+    with full_fp32():
+        for k, m in models.items():
+            t = time.perf_counter()
+            fit[k] = m.fit(*args)
+            print(f"rllib FittedQModel.fit on {k}: 20 backups x 25 Adam "
+                  f"steps in {time.perf_counter() - t:.3f} s, final loss "
+                  f"{fit[k]:.7f}")
+            q[k] = m.q_values(obs)
+    w = [np.concatenate([np.ravel(v) for layer in models[k].get_weights()
+                         for v in layer.values()]) for k in ("card", "cpu")]
+    e_q = float(np.abs(q["card"] - q["cpu"]).max() / np.abs(q["cpu"]).max())
+    e_w = float(np.linalg.norm(w[0] - w[1]) / np.linalg.norm(w[1]))
+    e_loss = abs(fit["card"] - fit["cpu"]) / abs(fit["cpu"])
+    print(f"check rllib FittedQModel.fit card vs CPU (full_fp32): Q-values "
+          f"rel {e_q:.3e}, weights rel {e_w:.3e}, final loss rel "
+          f"{e_loss:.3e} (tol {TOL_FQE_CARD})")
+    require(max(e_q, e_w, e_loss) < TOL_FQE_CARD,
+            "FittedQModel.fit on the card matches the CPU")
+    out["fqe_card_vs_cpu"] = {"q_rel": e_q, "weights_rel": e_w,
+                              "loss_rel": e_loss}
+    return out
+
+
+def offpolicy_phase(torch, A, dev, root):
+    """Phase 7c: SAC, TD3, CQL, MARWIL, BC, DM/DR, Ape-X, ES and ARS
+    through their public entry points (``XConfig()...build()``, no device:
+    the learner on the card, the workers' policies on the CPU), at their
+    configs' defaults. Gates: learner tensors on the card and worker
+    policies on the CPU; every metric finite and timesteps_total as the
+    settings imply; recorded learner updates replayed on the card and the
+    CPU within the TOL_RL_* tolerances (TD3 with and without its actor
+    step, CQL in both phases); FittedQModel's fit on the card against the
+    CPU; no attention kernel launched. Prints SAC's and TD3's env-steps/s
+    and learner ms an update, CQL's and MARWIL's ms an update and each
+    run's wall seconds."""
+    import shutil
+
+    import numpy as np
+
+    from ray_tpu_torch.rllib import (ARSConfig, ApexConfig, BCConfig,
+                                     CQLConfig, ESConfig, MARWILConfig,
+                                     SACConfig, TD3Config)
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    A.reset_launch_counts()
+    out, parity = {}, {}
+    base, paths, behaviour = rl7c_datasets(torch, root)
+    print(f"rllib 7c datasets: Pendulum 16 x 1000 uniform steps, CartPole "
+          f"4096 steps of PPO (behaviour reward {behaviour}) in "
+          f"{time.perf_counter() - t_phase:.3f} s")
+
+    def report(name, algo, results, walls, ms, extra=""):
+        wall = sum(walls)
+        last = results[-1]
+        update_ms = float(np.mean(ms[1:] or ms)) if ms else 0.0
+        learner = (f"{len(ms)} learner updates, {update_ms:.3f} ms an "
+                   f"update after the first (CUDA events; first "
+                   f"{ms[0]:.3f})" if ms else "no learner on the card")
+        print(f"rllib {name} on {card}: {len(results)} iterations, "
+              f"timesteps_total {last['timesteps_total']}, {learner}{extra}; "
+              f"{wall:.3f} s wall (train() "
+              + ", ".join(f"{w:.3f}" for w in walls) + " s); last "
+              + json.dumps({k: v for k, v in last.items()
+                            if k not in ("time_this_iter_s",
+                                         "replay_shards")}))
+        out[name] = {"iterations": len(results), "wall_s": wall,
+                     "update_ms": update_ms if ms else None,
+                     "timesteps_total": last["timesteps_total"]}
+
+    # -- SAC and TD3 at their defaults, FastPendulum --------------------------
+    for name, cfg, kind in (("sac", SACConfig(), lambda a: 0),
+                            ("td3", TD3Config(), lambda a: bool(a[4]))):
+        algo = cfg.build()
+        update, calls, ms = rl7c_record(torch, algo, kind)
+        results, walls = rl7c_train(
+            name, algo, lambda r: r["num_learner_updates"] >= 64)
+        rl7c_finite(name, results)
+        per = cfg.num_envs_per_worker * cfg.rollout_fragment_length
+        last = results[-1]
+        require(last["timesteps_total"] == per * len(results)
+                and last["num_learner_updates"] == 64,
+                f"{name}: timesteps_total {last['timesteps_total']} is "
+                f"{per} x {len(results)}, 64 updates")
+        rl7c_on_card(name, algo.params, algo.opt_state)
+        rl7c_policy_on_cpu(name, algo.workers.local_worker.policy)
+        steps_s = last["timesteps_total"] / sum(walls)
+        report(name, algo, results, walls, ms,
+               f", {steps_s:.1f} env-steps/s over the run")
+        out[name]["env_steps_s"] = steps_s
+        if name == "td3":
+            require(set(calls) == {True, False},
+                    "td3: both kinds of update ran")
+            for flag, label in ((True, "an update with its actor step"),
+                                (False, "a critic-only update")):
+                parity[f"td3_{flag}"] = rl7c_parity(
+                    torch, dev, name, update, calls[flag], label)
+        else:
+            parity[name] = rl7c_parity(torch, dev, name, update, calls[0],
+                                       "the first update")
+            out[name]["profile"] = rl7c_profile(
+                torch, dev, name, update, calls[0],
+                tuple(t.to(dev) for t in calls[0][3]))
+        algo.stop()
+        del algo, calls
+
+    # -- CQL at its defaults on the Pendulum log, 4 iterations ----------------
+    algo = CQLConfig().offline_data(paths["pendulum"]).build()
+    update, calls, ms = rl7c_record(torch, algo, lambda a: bool(a[6]))
+    results, walls = rl7c_train("cql", algo, lambda r: r["num_updates"]
+                                >= 4 * algo.config.num_updates_per_iter)
+    rl7c_finite("cql", results)
+    cfg = algo.config
+    require(results[-1]["timesteps_total"]
+            == 4 * cfg.num_updates_per_iter * cfg.train_batch_size,
+            "cql: timesteps_total")
+    require(set(calls) == {True, False}, "cql: both actor phases ran")
+    rl7c_on_card("cql", algo.params, algo.critic_state, algo.actor_state,
+                 algo.alpha_state)
+    report("cql", algo, results, walls, ms,
+           f" ({algo._n} logged rows; behaviour cloning to update "
+           f"{cfg.bc_iters})")
+    for flag, label in ((True, "a behaviour-cloning update"),
+                        (False, "a SAC-objective update")):
+        parity[f"cql_{flag}"] = rl7c_parity(torch, dev, f"cql_{flag}",
+                                            update, calls[flag], label)
+    del algo, calls
+
+    # -- MARWIL (beta 1) and BC on the CartPole log, 2 iterations each --------
+    marwil_policy = None
+    for name, cfg in (("marwil", MARWILConfig()), ("bc", BCConfig())):
+        algo = cfg.offline_data(paths["cartpole"]).build()
+        update, calls, ms = rl7c_record(torch, algo)
+        results, walls = rl7c_train(
+            name, algo, lambda r: r["training_iteration"] >= 2)
+        rl7c_finite(name, results)
+        require(results[-1]["timesteps_total"]
+                == 2 * cfg.num_updates_per_iter * cfg.train_batch_size,
+                f"{name}: timesteps_total")
+        rl7c_on_card(name, algo.params, algo.opt_state, algo._adv_norm)
+        rl7c_policy_on_cpu(name, algo.workers.local_worker.policy)
+        ev = algo.evaluate(episodes=8)
+        report(name, algo, results, walls, ms,
+               f", evaluated reward {ev['episode_reward_mean']:.1f} over "
+               f"{ev['episodes']} episodes")
+        parity[name] = rl7c_parity(torch, dev, name, update, calls[0],
+                                   "the first update")
+        if name == "marwil":
+            marwil_policy = algo.workers.local_worker.policy
+        algo.stop()
+        del algo, calls
+
+    # -- DM and DR, the fitted-Q model on the card ----------------------------
+    out["ope"] = rl7c_ope(torch, dev, card, paths["cartpole"], marwil_policy)
+    shutil.rmtree(base)
+
+    # -- Ape-X at its defaults on an in-process runtime -----------------------
+    cfg = ApexConfig()
+    algo = cfg.build(runtime=InlineRuntime())
+    update, calls, ms = rl7c_record(torch, algo)
+    per_iter = cfg.num_updates_per_iter
+    results, walls = rl7c_train(
+        "apex", algo, lambda r: r["num_learner_updates"] >= 2 * per_iter)
+    rl7c_finite("apex", [{k: v for k, v in r.items() if k != "loss"}
+                         for r in results])
+    last = results[-1]
+    per = cfg.num_envs_per_worker * cfg.rollout_fragment_length
+    require(last["timesteps_total"] == per * len(results)
+            and last["loss"] is not None and math.isfinite(last["loss"]),
+            "apex: timesteps_total and a finite loss")
+    require(all(s["adds"] > 0 for s in last["replay_shards"])
+            and sum(s["samples"] for s in last["replay_shards"]) > 0,
+            f"apex: every shard fed and sampled ({last['replay_shards']})")
+    rl7c_on_card("apex", algo.params, algo.target_params, algo.opt_state)
+    for w in algo.workers.remote_workers:
+        rl7c_policy_on_cpu("apex", w._obj.policy)
+    eps = [w._obj.policy.epsilon for w in algo.workers.remote_workers]
+    report("apex", algo, results, walls, ms,
+           f", 2 workers (epsilons {eps}) and 2 shards on an in-process "
+           "runtime")
+    parity["apex"] = rl7c_parity(torch, dev, "apex", update, calls[0],
+                                 "the first DQN update")
+    algo.stop()
+    del algo, calls
+
+    # -- ES and ARS, locally on the CPU ---------------------------------------
+    for name, cfg in (("es", ESConfig()), ("ars", ARSConfig())):
+        algo = cfg.rollouts(num_rollout_workers=0).build()
+        results, walls = rl7c_train(
+            name, algo, lambda r: r["training_iteration"] >= 2)
+        rl7c_finite(name, results)
+        require(results[-1]["timesteps_total"] == sum(
+            r["timesteps_this_iter"] for r in results)
+            and all(r["episodes_this_iter"] == 2 * cfg.episodes_per_batch
+                    for r in results), f"{name}: steps and episodes")
+        require(algo._local.policy.device.type == "cpu",
+                f"{name}: the evaluation policy on the CPU")
+        report(name, algo, results, walls, [],
+               f", {algo.dim} parameters, noise table "
+               f"{cfg.noise_size}")
+        algo.stop()
+
+    launches = {f.__name__: f.launches
+                for f in A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS}
+    print(f"rllib 7c: attention kernel launches {launches} (no attention "
+          "on this path)")
+    require(all(n == 0 for n in launches.values()),
+            "no attention kernel on the phase 7c path")
+    out["parity"] = parity
+    out["launches"] = launches
+    torch.cuda.empty_cache()
+    print(f"phase 7c (rllib: SAC, TD3, CQL, MARWIL, BC, DM/DR, Ape-X, ES, "
+          f"ARS): {time.perf_counter() - t_phase:.3f} s wall; {card}")
     return out
 
 

@@ -1,4 +1,4 @@
-"""Carries GPT-2, Llama, ViT, ResNet and PPO-policy parameters between
+"""Carries GPT-2, Llama, ViT, ResNet and RL parameters between
 the JAX package's pytrees and the port's modules.
 
 The JAX tree arrives as nested dicts of numpy arrays (``np.asarray`` of
@@ -16,7 +16,10 @@ OIHW here, and the conv policies' dense rows keep JAX's (h, w, c) order.
 The ``ppo_*`` functions carry every RL tree: the MLP and conv policies,
 the catalog's LSTM and conv-LSTM (``lstm_w`` ``[feat + cell, 4 * cell]``
 with its gates in the order i, f, g, o, which the port's cell keeps, so
-it crosses as it is) and DQN's Q-net.
+it crosses as it is) and DQN's Q-net. The ``rl_tree_*`` functions carry
+the nested trees of SAC, TD3 and CQL and the fitted-Q model's list of
+layers as they are; ``ravel_tree``/``unravel_tree`` give ES's flat
+vector in ``jax.flatten_util.ravel_pytree``'s order.
 """
 
 from __future__ import annotations
@@ -143,3 +146,69 @@ def ppo_tree_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict:
     return {name: (tensor_to_numpy(t.permute(2, 3, 1, 0)) if _is_conv(name)
                    else tensor_to_numpy(t))
             for name, t in params.items()}
+
+
+def rl_tree_from_numpy(tree):
+    """A nested JAX RL tree (numpy leaves) -> the same nesting of CPU
+    tensors: SAC's, TD3's and CQL's ``{"actor": {...}, "q1": {...}, ...,
+    "log_alpha": ()}`` and ``FittedQModel``'s list of ``{"w", "b"}``
+    layers. Their dense weights are ``[in, out]`` on both sides."""
+    if isinstance(tree, Mapping):
+        return {k: rl_tree_from_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [rl_tree_from_numpy(v) for v in tree]
+    arr = np.asarray(tree)
+    return tensor_from_numpy(arr).reshape(arr.shape)  # 0-d stays 0-d
+
+
+def rl_tree_to_numpy(tree):
+    """The port's nested RL tree (tensors) -> the JAX layout as fp32
+    numpy, nested the same way."""
+    if isinstance(tree, Mapping):
+        return {k: rl_tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [rl_tree_to_numpy(v) for v in tree]
+    return tensor_to_numpy(tree)
+
+
+def _ravel_leaves(tree) -> list:
+    if isinstance(tree, Mapping):
+        return [leaf for k in sorted(tree) for leaf in _ravel_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _ravel_leaves(v)]
+    return [tree]
+
+
+def ravel_tree(tree) -> np.ndarray:
+    """A numpy tree in the JAX layout -> one flat fp32 vector, ordered as
+    ``jax.flatten_util.ravel_pytree`` orders it: a dict's keys sorted, a
+    list in order, each leaf row-major (ES's parameter vector)."""
+    leaves = _ravel_leaves(tree)
+    if not leaves:
+        return np.zeros(0, np.float32)
+    return np.concatenate([np.asarray(x, np.float32).reshape(-1)
+                           for x in leaves])
+
+
+def unravel_tree(flat: np.ndarray, like):
+    """``ravel_tree``'s inverse: ``flat`` cut into ``like``'s leaves, as
+    fp32 numpy of their shapes, nested as ``like``."""
+    flat = np.asarray(flat, np.float32)
+    offset = 0
+
+    def cut(node):
+        nonlocal offset
+        if isinstance(node, Mapping):
+            return {k: cut(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return [cut(v) for v in node]
+        shape = np.shape(node)
+        n = int(np.prod(shape))
+        out = flat[offset:offset + n].reshape(shape)
+        offset += n
+        return out
+
+    tree = cut(like)
+    if offset != flat.size:
+        raise ValueError(f"flat vector of {flat.size} for {offset} values")
+    return tree

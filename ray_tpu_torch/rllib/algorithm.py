@@ -12,8 +12,9 @@ the JAX package's layout, so every sync copies each leaf from the learner's
 device to the host once.
 
 Also here: what the learners share, their parameters as a dict of leaf
-tensors on the learner's device (``to_learner``) and one optimizer step on
-them (``sgd_step``).
+tensors on the learner's device (``to_learner``; nested trees
+``learner_tree``, in place ``copy_into``/``copy_tree_into``) and one
+optimizer step on them (``sgd_step``, ``opt_step``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from ..device import default_device
-from ..models.convert import ppo_params_from_numpy
+from ..models.convert import ppo_params_from_numpy, rl_tree_from_numpy
 from .policy import Params
 from .rollout_worker import RolloutWorker
 from .sample_batch import SampleBatch
@@ -213,6 +214,57 @@ def tree_map(fn: Callable, tree, leaf: type = torch.Tensor):
     return tree
 
 
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of nested dicts, lists and tuples in JAX's flattening
+    order (a dict's keys sorted), which the optimizer states of nested
+    parameter trees follow."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def learner_tree(weights, device):
+    """A nested numpy tree in the JAX layout (SAC's, TD3's, CQL's) -> leaf
+    tensors on ``device`` that take gradients, nested as the weights."""
+    return tree_map(lambda t: t.to(device).requires_grad_(),
+                    rl_tree_from_numpy(weights))
+
+
+@torch.no_grad()
+def copy_tree_into(tree, weights) -> None:
+    """A nested numpy tree in the JAX layout copied into ``tree`` in place,
+    leaf by leaf (the same nesting, names and shapes)."""
+    mine, theirs = tree_leaves(tree), tree_leaves(rl_tree_from_numpy(weights))
+    if len(mine) != len(theirs):
+        raise ValueError(f"{len(theirs)} leaves for {len(mine)}")
+    for p, v in zip(mine, theirs):
+        p.copy_(v.reshape(p.shape))
+
+
+def key_to_numpy(key) -> np.ndarray:
+    """A ``random`` key as JAX keeps it: uint32 words ``[2]``."""
+    return np.array([int(key[0]), int(key[1])], np.uint32)
+
+
+def key_from_numpy(words, device):
+    w = np.asarray(words).astype(np.int64)
+    return (torch.tensor(w[0], device=device),
+            torch.tensor(w[1], device=device))
+
+
+@torch.no_grad()
+def opt_step(leaves: List[torch.Tensor], grads, optimizer, opt_state):
+    """The optimizer's update of ``leaves`` from ``grads``, added to them in
+    place; returns the optimizer state."""
+    updates, opt_state = optimizer.update(
+        list(grads), opt_state, [p.detach() for p in leaves])
+    for p, u in zip(leaves, updates):
+        p.add_(u)
+    return opt_state
+
+
 def sgd_step(params: Params, opt_state, optimizer, loss_fn: Callable
              ) -> Tuple[torch.Tensor, Any, Any]:
     """One step: ``loss_fn(params) -> (loss, aux)``, its gradients, the
@@ -222,11 +274,7 @@ def sgd_step(params: Params, opt_state, optimizer, loss_fn: Callable
     with torch.enable_grad():
         loss, aux = loss_fn(params)
         grads = torch.autograd.grad(loss, leaves)
-    with torch.no_grad():
-        updates, opt_state = optimizer.update(
-            list(grads), opt_state, [p.detach() for p in leaves])
-        for p, u in zip(leaves, updates):
-            p.add_(u)
+    opt_state = opt_step(leaves, grads, optimizer, opt_state)
     return loss.detach(), tree_map(torch.Tensor.detach, aux), opt_state
 
 
