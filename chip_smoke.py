@@ -148,10 +148,29 @@ Phases; any failure exits non-zero:
      the same weights within TOL_FQE_CARD; no attention kernel launched.
      Prints SAC's and TD3's env-steps/s, each learner's ms an update
      (CUDA events), DM's and DR's estimates and each run's wall seconds;
-  8. prints the kernels as one JSON line (each entry also with its
+  8. the Train library on InlineRuntime (``train_library_phase``). 8a:
+     a 10 MB fp32 tensor, an 8 MB bf16 tensor and gpt2-124m's state dict
+     through a protocol-5 pickler whose dispatch table holds the port's
+     reducer: back on the card bit-equal, one out-of-band buffer a tensor,
+     no storage in band; ms and GB/s each way. 8b: TorchTrainer.fit of
+     gpt2-124m (batch 8, S 1024, bf16 + fp32 master, default_optimizer,
+     default_rng(0) tokens), 6 steps, a checkpoint (params and optimizer
+     state, async save, keep 2) at steps 3 and 6: losses bit-equal to the
+     same 6 steps through build_train directly, K1-K3 12 launches a step
+     and no general kernel; a second fit resumed from step 3's checkpoint
+     directory gives steps 4-6's losses bit-equal; step ms beside
+     build_train's, the report's host snapshots, each save's seconds and
+     GB, the restore's seconds. 8c: TorchPredictor.from_checkpoint of the
+     fit's result: logits of the 8 x 1024 batch bit-equal to the model's
+     forward with the restored parameters; its ms. 8d:
+     LLMServer(model="llama-1b", checkpoint_path=) over save_arrays of a
+     llama-1b drawn from seed 0: four requests' tokens (three greedy, one
+     seeded at temperature 0.8) equal LLMServer(params=the same tree)'s;
+     the checkpoint's GB, save and restore seconds (~30-90 s in all);
+  9. prints the kernels as one JSON line (each entry also with its
      launches a step on phases 5h and 5i, a rank on phase 5j's
-     ring-flash and Ulysses, and on phase 7c), the card again, and last
-     {"ok": true, "device": {...}}.
+     ring-flash and Ulysses, on phase 7c and a step of phase 8b), the
+     card again, and last {"ok": true, "device": {...}}.
 
 Between phases 5 and 6 it also trains gpt2-774m at bench.py's configuration
 (batch 8, seq 1024, bf16, fp32 master, adamw_lowmem, remat_policy="mem2",
@@ -750,6 +769,9 @@ def main(argv):
     rl = rllib_phase(torch, A, dev, root)
     # -- 7c. SAC, TD3, CQL, MARWIL/BC, DM/DR, Ape-X, ES/ARS -----------------
     rl7c = offpolicy_phase(torch, A, dev, root)
+    # -- 8. the Train library: tensors on the object plane, TorchTrainer,
+    # TorchPredictor, LLMServer(checkpoint_path=) ------------------------------
+    tl = train_library_phase(torch, A, dev, root)
     print(f"north-star paths on {card}: gpt2-774m/mem2 step "
           f"{train_774m['step_ms']:.3f} ms, MFU {train_774m['mfu_pct']:.3f}%, "
           f"peak memory {train_774m['peak_gb']:.3f} GB; gpt2-1.5b (bench_15b)"
@@ -776,7 +798,7 @@ def main(argv):
            else "")
         for name, r in rl7c.items() if "wall_s" in r))
 
-    # -- 8. the record --------------------------------------------------------
+    # -- 9. the record --------------------------------------------------------
     kernels = []
     for name, r in rows.items():
         kernels.append(dict(name=name, route="cuda", source=r["source"],
@@ -835,6 +857,7 @@ def main(argv):
         k["launches_ulysses_sp4"] = [r["ulysses"]["launches"].get(name, 0)
                                      for r in sp4]
         k["launches_rllib_7c"] = rl7c["launches"][name]
+        k["launches_train_8b_per_step"] = tl["launches_per_step"][name]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
@@ -1438,12 +1461,35 @@ def rllib_phase(torch, A, dev, root):
 
 
 class InlineRuntime:
-    """A synchronous in-process actor runtime, for phase 7c's Ape-X:
-    ``remote(cls)`` builds the actor in this process, and
-    ``actor.method.remote(...)`` runs the method at once and returns a ref
-    to its result; ``get``, ``put``, ``wait`` (every ref is ready) and
-    ``kill``. It is the ``runtime=`` interface the port takes; this script
-    imports no runtime of the JAX package."""
+    """A synchronous in-process actor runtime, for phase 7c's Ape-X and
+    phase 8's Train library: ``remote(cls)`` builds the actor in this
+    process, and ``actor.method.remote(...)`` runs the method at once and
+    returns a ref to its result; ``get``, ``put``, ``wait`` (every ref is
+    ready), ``kill``, and placement groups of one slot that are always
+    ready (``placement_group``, ``remove_placement_group``,
+    ``PlacementGroupSchedulingStrategy``). It is the ``runtime=`` interface
+    the port takes; this script imports no runtime of the JAX package.
+    A train loop runs whole at ``run_train_fn.remote()``, so its reports
+    arrive in the trainer's final drain: the JAX package's semantics on a
+    gang of one slot."""
+
+    class PlacementGroup:
+        def __init__(self, bundles, strategy="PACK"):
+            self.bundles, self.strategy = bundles, strategy
+
+        def wait(self, timeout=None):
+            return True
+
+    class PlacementGroupSchedulingStrategy:
+        def __init__(self, placement_group, placement_group_bundle_index=-1):
+            self.placement_group = placement_group
+            self.placement_group_bundle_index = placement_group_bundle_index
+
+    def placement_group(self, bundles, strategy="PACK"):
+        return InlineRuntime.PlacementGroup(bundles, strategy)
+
+    def remove_placement_group(self, pg):
+        pass
 
     class Ref:
         def __init__(self, value):
@@ -3683,6 +3729,358 @@ def _sp4_body(rank, world, store, device, shapes):
     finally:
         dist.destroy_process_group()
     return rec
+
+
+# -- phase 8: the Train library ----------------------------------------------
+
+TRAIN_STEPS = 6            # phase 8b: steps of each fit
+TRAIN_CHECKPOINT_AT = (3, 6)
+SERVE_8D_NEW = 32          # phase 8d: tokens a request
+
+
+def dir_gb(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files) / 1e9
+
+
+def object_plane_8a(torch, dev, cfg, card):
+    """Phase 8a: tensors through a protocol-5 pickler whose dispatch table
+    holds the port's reducer (plain pickle: the card's machine may lack
+    cloudpickle). Each tensor must come back on the card bit for bit, its
+    bytes in one out-of-band buffer, the in-band pickle holding no
+    storage. Returns {what: (GB, dumps ms, loads ms)}."""
+    import copyreg
+    import io
+    import pickle
+
+    from ray_tpu_torch.core.serialization import reduce_tensor
+    from ray_tpu_torch.models import gpt2
+
+    class TensorPickler(pickle.Pickler):
+        dispatch_table = {**copyreg.dispatch_table,
+                          torch.Tensor: reduce_tensor}
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    objects = {
+        "fp32 10 MB": {"t": torch.randn(10 * 2 ** 20 // 4, generator=g,
+                                        device=dev)},
+        "bf16 8 MB": {"t": torch.randn(4 * 2 ** 20, generator=g,
+                                       device=dev).to(torch.bfloat16)},
+        "gpt2-124m state dict": gpt2.GPT2(
+            cfg, torch.Generator().manual_seed(0)).to(dev).state_dict()}
+    out = {}
+    for what, obj in objects.items():
+        n = len(obj)
+        nbytes = sum(t.numel() * t.element_size() for t in obj.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bufs, f = [], io.BytesIO()
+        TensorPickler(f, protocol=5, buffer_callback=bufs.append).dump(obj)
+        inband = f.getvalue()
+        t1 = time.perf_counter()
+        back = pickle.loads(inband, buffers=bufs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        require(len(bufs) == n, f"8a {what}: one out-of-band buffer a "
+                                f"tensor ({len(bufs)} for {n})")
+        require(sum(b.raw().nbytes for b in bufs) == nbytes
+                and len(inband) <= 512 * n + 4096,
+                f"8a {what}: no storage in band ({len(inband)} bytes)")
+        require(all(back[k].is_cuda and back[k].dtype == t.dtype
+                    and torch.equal(bits(back[k]), bits(t))
+                    for k, t in obj.items()),
+                f"8a {what}: back on the card, bit-equal")
+        gb = nbytes / 1e9
+        out[what] = dict(gb=gb, tensors=n, inband_bytes=len(inband),
+                         dumps_ms=(t1 - t0) * 1e3, loads_ms=(t2 - t1) * 1e3)
+        print(f"8a {what} on {card}: {n} tensors, {gb:.6f} GB, in-band "
+              f"{len(inband)} bytes; card -> pickle {(t1 - t0) * 1e3:.3f} ms "
+              f"({gb / (t1 - t0):.3f} GB/s), pickle -> card "
+              f"{(t2 - t1) * 1e3:.3f} ms ({gb / (t2 - t1):.3f} GB/s)")
+        del back, bufs, inband
+    del objects
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_library_phase(torch, A, dev, root):
+    """Phase 8: the Train library on the card, on ``InlineRuntime``.
+
+    8a: ``object_plane_8a``. 8b: ``TorchTrainer(...).fit()`` of gpt2-124m
+    (batch 8, S 1024, bf16 with an fp32 master, ``default_optimizer``,
+    ``default_rng(0)`` tokens), TRAIN_STEPS steps reporting the loss, a
+    checkpoint (params and optimizer state, ``CheckpointConfig(num_to_keep=
+    2, async_save=True)``) at each of TRAIN_CHECKPOINT_AT: its losses
+    bit-equal to the same steps through ``build_train`` directly, K1-K3 12
+    launches a step and no general kernel; then ``fit(resume_from_
+    checkpoint=<the first checkpoint's directory>)``, whose losses must
+    equal the continuous run's. 8c: ``TorchPredictor.from_checkpoint`` of
+    the fit's result: logits of one batch bit-equal to the model's forward
+    with the same parameters. 8d: ``LLMServer(model="llama-1b",
+    checkpoint_path=)`` over a ``save_arrays`` directory of a llama-1b drawn
+    from seed 0: the tokens of ``LLMServer(params=the same tree)``.
+    Checkpoints go under chiprun_out/train_8 and are removed. Returns the
+    launches a step of 8b by kernel and the phase's numbers."""
+    import asyncio
+    import shutil
+
+    import numpy as np
+
+    from ray_tpu_torch.llm.serve import LLMServer
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.models.convert import llama_tree_to_numpy
+    from ray_tpu_torch.train import (Checkpoint, CheckpointConfig,
+                                     CheckpointManager, RunConfig,
+                                     TorchPredictor, TorchTrainer,
+                                     default_optimizer, restore_arrays,
+                                     save_arrays, session)
+    from ray_tpu_torch.train.checkpoint import as_template
+    from ray_tpu_torch.train.step import build_train
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    work = os.path.join(root, "chiprun_out", "train_8")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = gpt2_124m_config(gpt2, torch)
+    out = {}
+    try:
+        out["object_plane"] = object_plane_8a(torch, dev, cfg, card)
+
+        # -- 8b. TorchTrainer.fit of gpt2-124m -------------------------------
+        batch, seq = 8, 1024
+        tokens = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (batch, seq + 1)).astype(np.int64)
+        data = {"tokens": torch.from_numpy(tokens).to(dev)}
+
+        def build():
+            return build_train(lambda g: gpt2.GPT2(cfg, g),
+                               lambda m, b: m.loss_fn(b),
+                               optimizer=default_optimizer(),
+                               master_fp32=True)
+
+        direct, direct_ms = [], []
+        init, step_fn = build()
+        model, opt, n = init(0)
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            model, opt, n, met = step_fn(model, opt, n, data)
+            direct.append(met["loss"].item())
+            direct_ms.append((time.perf_counter() - t0) * 1e3)
+        del model, opt, met
+        torch.cuda.empty_cache()
+
+        report_s = []
+
+        def train_fn(config):
+            init, step_fn = build()
+            model, opt, n = init(0)
+            restore_s = None
+            ckpt = session.get_checkpoint()
+            if ckpt is not None:
+                t0 = time.perf_counter()
+                state = ckpt.to_dict()
+                params = dict(model.named_parameters())
+                arrays = as_template({"params": params, "opt_state": opt},
+                                     state["__arrays__"])
+                with torch.no_grad():
+                    for name, p in params.items():
+                        p.copy_(arrays["params"][name])
+                opt, n = arrays["opt_state"], state["step"]
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+            while n < TRAIN_STEPS:
+                t0 = time.perf_counter()
+                model, opt, n, met = step_fn(model, opt, n, data)
+                loss = met["loss"].item()
+                step_ms = (time.perf_counter() - t0) * 1e3
+                ckpt = None
+                if n in TRAIN_CHECKPOINT_AT:
+                    ckpt = Checkpoint.from_dict({"step": n, "__arrays__": {
+                        "params": dict(model.named_parameters()),
+                        "opt_state": opt}})
+                t0 = time.perf_counter()
+                session.report({"step": n, "loss": loss, "step_ms": step_ms,
+                                "restore_s": restore_s}, checkpoint=ckpt)
+                if ckpt is not None:
+                    report_s.append(time.perf_counter() - t0)
+
+        saves = []
+        save = CheckpointManager.save
+
+        def timed_save(self, checkpoint, step, metrics=None):
+            t0 = time.perf_counter()
+            path = save(self, checkpoint, step, metrics)
+            saves.append((time.perf_counter() - t0, dir_gb(path)))
+            return path
+
+        def fit(name, resume=None):
+            trainer = TorchTrainer(
+                train_fn, run_config=RunConfig(
+                    name=name, storage_path=work,
+                    checkpoint_config=CheckpointConfig(num_to_keep=2,
+                                                       async_save=True)),
+                resume_from_checkpoint=resume, runtime=InlineRuntime())
+            A.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = trainer.fit()
+            wall = time.perf_counter() - t0
+            launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS
+                        + A.GENERAL_WRAPPERS}
+            require(result.ok, f"8b {name}: {result.error}")
+            return result, wall, launches
+
+        CheckpointManager.save = timed_save
+        try:
+            result, fit_wall, launches = fit("gpt2-124m-fit")
+            losses = [m["loss"] for m in result.metrics_history]
+            fit_ms = [m["step_ms"] for m in result.metrics_history]
+            print(f"8b direct build_train losses {direct}")
+            print(f"8b TorchTrainer.fit losses   {losses}")
+            require(losses == direct, "8b: TorchTrainer.fit's losses "
+                                      "bit-equal to build_train's")
+            per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+            print(f"8b launches a step: {per_step}")
+            require(all(per_step[f.__name__] == cfg.num_layers
+                        for f in A.KERNEL_WRAPPERS),
+                    f"8b: K1-K3 {cfg.num_layers} launches a step")
+            require(all(launches[f.__name__] == 0
+                        for f in A.GENERAL_WRAPPERS),
+                    "8b: no general kernel")
+            ckpt_dir = os.path.join(work, "gpt2-124m-fit", "checkpoints")
+            kept = sorted(os.listdir(ckpt_dir))
+            require(kept == ["checkpoint_00000001", "checkpoint_00000002"],
+                    f"8b: both checkpoints kept ({kept})")
+            first = Checkpoint.from_directory(os.path.join(ckpt_dir, kept[0]))
+            resumed, resume_wall, resume_launches = fit(
+                "gpt2-124m-resume", resume=first)
+        finally:
+            CheckpointManager.save = save
+        again = [m["loss"] for m in resumed.metrics_history]
+        restore_s = resumed.metrics_history[0]["restore_s"]
+        print(f"8b resumed at step {TRAIN_CHECKPOINT_AT[0]}: losses {again}")
+        require(again == losses[TRAIN_CHECKPOINT_AT[0]:],
+                "8b: the resumed run's losses bit-equal to the continuous "
+                "run's")
+        require(all(resume_launches[f.__name__] == cfg.num_layers * len(again)
+                    for f in A.KERNEL_WRAPPERS), "8b resume: K1-K3 launches")
+        med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+        plain_steps = [ms for i, ms in enumerate(fit_ms)
+                       if i + 1 not in TRAIN_CHECKPOINT_AT]
+        print(f"8b on {card}: trainer step ms {[round(x, 3) for x in fit_ms]}"
+              f" (median of the steps without a checkpoint "
+              f"{med(plain_steps):.3f}) beside build_train's "
+              f"{[round(x, 3) for x in direct_ms]} (median "
+              f"{med(direct_ms[1:]):.3f}); fit {fit_wall:.3f} s wall, "
+              f"build_train's {sum(direct_ms) / 1e3:.3f} s of steps; "
+              f"session.report's snapshots to the host (the fit's, then "
+              f"the resume's) {[round(x, 3) for x in report_s]} s; saves "
+              f"(async, s, GB on disk; the same order) "
+              f"{[(round(a, 3), round(b, 3)) for a, b in saves]}; the "
+              f"resume's restore {restore_s:.3f} s, its fit "
+              f"{resume_wall:.3f} s wall")
+        out["train"] = dict(
+            losses=losses, direct_losses=direct, step_ms=fit_ms,
+            direct_step_ms=direct_ms, fit_wall_s=fit_wall,
+            report_s=report_s, saves=saves, restore_s=restore_s,
+            resume_wall_s=resume_wall)
+        out["launches_per_step"] = per_step
+
+        # -- 8c. TorchPredictor from the fit's checkpoint -------------------
+        net = gpt2.GPT2(cfg).to(dev).to(torch.bfloat16)
+
+        def apply_fn(params, batch):
+            return {"logits": torch.func.functional_call(
+                net, params, (batch["tokens"],))}
+
+        predictor = TorchPredictor.from_checkpoint(result.checkpoint,
+                                                   apply_fn=apply_fn)
+        inputs = {"tokens": tokens[:, :-1]}
+        predictor.predict(inputs)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = predictor.predict(inputs)
+        predict_ms = (time.perf_counter() - t0) * 1e3
+        params = result.checkpoint.to_dict()["__arrays__"]["params"]
+        ref_net = gpt2.GPT2(cfg).to(dev).to(torch.bfloat16)
+        ref_net.load_state_dict(params)
+        with torch.inference_mode():
+            ref = ref_net(torch.from_numpy(tokens[:, :-1]).to(dev))
+        ref = ref.float().cpu().numpy()
+        require(pred["logits"].shape == ref.shape
+                and np.array_equal(pred["logits"], ref),
+                "8c: the predictor's logits bit-equal to the model's forward")
+        print(f"8c TorchPredictor on {card}: logits {list(ref.shape)} "
+              f"bit-equal; predict {predict_ms:.3f} ms (numpy in, fp32 "
+              f"numpy out, {ref.nbytes / 1e9:.3f} GB)")
+        out["predict_ms"] = predict_ms
+        del net, ref_net, predictor, pred, ref, result, resumed, data
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # -- 8d. LLMServer(checkpoint_path=) --------------------------------
+        lcfg = llama.CONFIGS["llama-1b"]
+        m = llama.Llama(lcfg, torch.Generator(device=dev).manual_seed(0),
+                        dev).to(lcfg.dtype)
+        tree = llama_tree_to_numpy(dict(m.named_parameters()), lcfg)
+        del m
+        path = os.path.join(work, "llama-1b")
+        t0 = time.perf_counter()
+        save_arrays(path, tree)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restore_arrays(path)
+        load_s = time.perf_counter() - t0
+        gb = dir_gb(path)
+        rng = np.random.default_rng(8)
+        prompts = [rng.integers(1, lcfg.vocab_size, size=n).tolist()
+                   for n in (128, 64, 200)]
+
+        def tokens_of(**kw):
+            server = LLMServer(model="llama-1b", num_slots=4, chunk=128,
+                               page_size=16, **kw)
+
+            async def ask():
+                outs = [await server({"prompt": p,
+                                      "max_tokens": SERVE_8D_NEW})
+                        for p in prompts]
+                outs.append(await server({
+                    "prompt": prompts[0], "max_tokens": SERVE_8D_NEW,
+                    "temperature": 0.8, "seed": 5}))
+                return [o["tokens"] for o in outs]
+
+            try:
+                t0 = time.perf_counter()
+                return asyncio.run(ask()), time.perf_counter() - t0
+            finally:
+                server.engine.stop()
+
+        t0 = time.perf_counter()
+        from_ckpt, ask_s = tokens_of(checkpoint_path=path)
+        server_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        from_params, _ = tokens_of(params=tree)
+        require(from_ckpt == from_params
+                and all(len(t) == SERVE_8D_NEW for t in from_ckpt),
+                "8d: LLMServer(checkpoint_path=)'s tokens equal "
+                "LLMServer(params=)'s")
+        print(f"8d LLMServer(checkpoint_path=) on {card}: llama-1b arrays "
+              f"{gb:.3f} GB on disk (bf16 widened to fp32), save_arrays "
+              f"{save_s:.3f} s, restore_arrays {load_s:.3f} s; the server "
+              f"from the checkpoint {server_s:.3f} s to its last answer "
+              f"({ask_s:.3f} s of requests); {len(prompts) + 1} requests' "
+              f"tokens equal LLMServer(params=)'s")
+        out["llm_checkpoint"] = dict(gb=gb, save_s=save_s, restore_s=load_s,
+                                     server_s=server_s)
+        del tree
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 8 (the Train library): {time.perf_counter() - t_phase:.3f}"
+          f" s wall; {card}")
+    return out
 
 
 if __name__ == "__main__":

@@ -25,6 +25,14 @@ def default_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def gpu_resources() -> dict:
+    """This process's cards as a runtime resource, for
+    ``init(resources=gpu_resources())``: the counterpart of the JAX
+    package's ``_local_chip_count`` (``core/runtime.py:2386``), which
+    counts TPUs through JAX and which the port leaves as it is."""
+    return {"GPU": float(torch.cuda.device_count())}
+
+
 # Backends with an ``fp32_precision`` setting ("ieee", "tf32", "bf16" or
 # "none", which defers to the parent), generic first.
 _FP32_BACKENDS = ("", "mkldnn", "mkldnn.matmul", "mkldnn.conv", "mkldnn.rnn",

@@ -15,9 +15,13 @@ group (one process a rank, as ``parallel.bootstrap`` starts them): every
 rank constructs the server, rank 0 answers requests and the others run
 the engine's follower loop.
 
-Not ported: ``build_llm_app``, which wraps the server in the JAX
-package's Serve runtime, and the trace context a Serve replica hands the
-engine (ROADMAP Queue A item 5); ``checkpoint_path`` (item 8) raises.
+``checkpoint_path`` is a directory of ``train.checkpoint.save_arrays``
+(``arrays.pkl``: the JAX package's Llama pytree as numpy, which either
+package writes). ``build_llm_app`` wraps the server in a Serve module the
+caller passes (``serve=``; ``ray_tpu.serve`` is one).
+
+Not ported: the trace context a Serve replica hands the engine (ROADMAP
+Queue A item 5).
 """
 
 from __future__ import annotations
@@ -40,11 +44,12 @@ def _build_params(model: str, seed: int,
     ``torch.Generator`` seeded with ``seed`` on the device (other numbers
     than the JAX package's ``init_params(PRNGKey(seed))``: the generators
     differ), or ``params``: a state dict of the module, or the JAX
-    package's pytree with numpy leaves."""
+    package's pytree with numpy leaves, or the pytree restored from
+    ``checkpoint_path``."""
     if checkpoint_path:
-        raise NotImplementedError(
-            "checkpoint_path needs train/checkpoint.py: ROADMAP Queue A "
-            "item 8")
+        from ..train.checkpoint import restore_arrays
+
+        params = restore_arrays(checkpoint_path)
     cfg = llama.CONFIGS[model]
     dev = default_device(device)
     if params is None:
@@ -212,3 +217,32 @@ class LLMServer:
             "session_recovery_ms": list(self._recoveries),
             "decode_profile": self.engine.decode_profile(),
         }
+
+
+def build_llm_app(model: str = "llama-tiny", num_slots: int = 8,
+                  chunk: int = 64, seed: int = 0,
+                  checkpoint_path: Optional[str] = None,
+                  name: str = "llm", page_size: int = 16,
+                  num_pages: Optional[int] = None,
+                  prefix_cache: bool = True,
+                  max_pending: Optional[int] = 256,
+                  queue_timeout_s: Optional[float] = 30.0,
+                  decode_block: int = 1, tp: int = 1, *,
+                  serve, device=None, **deploy_opts):
+    """A Serve application hosting the engine, for ``serve.run``.
+    ``serve`` is the Serve module (``deployment``; ``ray_tpu.serve`` is
+    one): the port imports no Serve runtime. ``device`` is the replica's
+    (CUDA unless the caller asks for the CPU)."""
+    # Mirror the engine's admission knobs into the deployment config so
+    # the router sheds at the same bound BEFORE a request crosses into
+    # the replica (the engine's own bounded queue stays authoritative
+    # for in-replica admission).
+    deploy_opts.setdefault("max_pending", max_pending)
+    deploy_opts.setdefault("queue_timeout_s", queue_timeout_s)
+    dep = serve.deployment(LLMServer, name=name, **deploy_opts)
+    return dep.bind(model=model, num_slots=num_slots, chunk=chunk,
+                    seed=seed, checkpoint_path=checkpoint_path,
+                    page_size=page_size, num_pages=num_pages,
+                    prefix_cache=prefix_cache, max_pending=max_pending,
+                    queue_timeout_s=queue_timeout_s,
+                    decode_block=decode_block, tp=tp, device=device)

@@ -4,7 +4,7 @@
 A group is a mesh dim: ``CollectiveGroup(name, mesh, axis)`` runs over
 ``mesh.get_group(axis)``, and ranks are positions along that axis.
 
-Two styles, as in the JAX package:
+Three styles, as in the JAX package:
 
 - the eager API (``allreduce``, ``allgather``, ``reducescatter``,
   ``broadcast``, ``barrier``, ``send_recv``, ``reduce``, ``gather``).
@@ -14,6 +14,8 @@ Two styles, as in the JAX package:
   row r of the JAX input is what rank r passes, and what the JAX op
   returns for the group (the whole value, or row r of it) is what rank r
   gets back;
+- ``HostGroup``: send/recv, rooted reduce and gather and a barrier
+  between actors of an injected runtime, over its object plane;
 - ``ops``: the in-graph forms, differentiable, for bodies that run on
   local shards (``sharding.smap``). A collective's backward is the
   collective that transposes it: psum's is a psum, all_gather's a
@@ -227,6 +229,200 @@ def gather(tensor, dst_rank: int = 0, group_name: str = _DEFAULT):
     g = get_group(group_name)
     full = _all_gather(tensor, g.group)
     return full if g.rank == dst_rank else None
+
+
+# -- host-plane groups between actors -----------------------------------------
+# Point-to-point and rooted collectives BETWEEN ACTORS, rendezvoused
+# through a named mailbox actor over the object plane: the JAX package's
+# ``HostGroup`` and ``_P2PMailbox`` (``parallel/collective.py:290-475``), on
+# the runtime the caller passes (``runtime=``: ``remote``, ``get`` and
+# ``get_actor``; ``ray_tpu.core`` has them). Tensors cross as the object
+# plane's tensor payloads (``core.serialization``). Matching is
+# deterministic via per-edge sequence numbers.
+
+_HOST_REDUCERS = {"sum": lambda x: x.sum(0), "max": lambda x: x.amax(0),
+                  "min": lambda x: x.amin(0), "mean": lambda x: x.mean(0)}
+
+
+class _P2PMailbox:
+    """Named rendezvous actor: keyed one-shot slots + epoch barriers."""
+
+    def __init__(self):
+        from ..core.serialization import install
+
+        install()  # the slots hand tensors back
+        self._slots = {}
+        self._barriers = {}
+
+    async def put(self, key, value):
+        self._slots[key] = value
+
+    async def take(self, key, timeout: float = 60.0):
+        import asyncio
+        import time as _t
+
+        deadline = _t.monotonic() + timeout
+        while key not in self._slots:
+            if _t.monotonic() > deadline:
+                raise TimeoutError(f"recv timed out waiting for {key}")
+            await asyncio.sleep(0.002)
+        return self._slots.pop(key)
+
+    async def arrive(self, group: str, epoch: int, world: int,
+                     timeout: float = 60.0):
+        import asyncio
+        import time as _t
+
+        now = _t.monotonic()
+        # lazy sweep of RELEASED entries only (count reached world):
+        # an incomplete entry may still have live waiters with long
+        # timeouts — deleting it would reset the count under them.
+        # Incomplete stale entries are cleared by destroy(). world is
+        # not stored per-entry, so released-ness rides a sentinel count.
+        for k in [k for k, (c, ts) in self._barriers.items()
+                  if c < 0 and now - ts > 600.0]:
+            del self._barriers[k]
+        k = (group, epoch)
+        count, _ = self._barriers.get(k, (0, now))
+        if count >= 0:  # negative = already released (late arrival ok)
+            count += 1
+            self._barriers[k] = (count, now)
+        deadline = now + timeout
+        while True:
+            c, _ = self._barriers.get(k, (0, 0))
+            if c < 0 or c >= world:
+                break
+            if _t.monotonic() > deadline:
+                raise TimeoutError(f"barrier {k} timed out")
+            await asyncio.sleep(0.002)
+        # mark released so the sweep may reclaim it later
+        self._barriers[k] = (-1, _t.monotonic())
+        return True
+
+    async def reset_group(self, group: str):
+        self._slots = {k: v for k, v in self._slots.items()
+                       if not (isinstance(k, tuple) and k
+                               and k[0] == group)}
+        self._barriers = {k: v for k, v in self._barriers.items()
+                          if k[0] != group}
+
+
+class HostGroup:
+    """Cross-actor collective group over the object plane.
+
+    Every participant (driver or actor) builds one with the same ``name``
+    and distinct ``rank``; ``send`` on one rank pairs with ``recv`` on
+    another, ``reduce``/``gather`` deliver to a root rank only. Values are
+    tensors (``torch.as_tensor`` of what is sent).
+    """
+
+    # The JAX package's mailbox is "rt::p2p-mailbox": the two never share.
+    _MAILBOX = "rt::p2p-mailbox-torch"
+
+    def __init__(self, world_size: int, rank: int,
+                 name: str = "default-host", runtime=None):
+        if runtime is None:
+            raise ValueError("HostGroup needs runtime=: an actor runtime "
+                             "with remote, get and get_actor, such as "
+                             "ray_tpu.core")
+        from ..core.serialization import install
+
+        install()  # this process sends tensors
+        self.runtime = runtime
+        self.world_size = world_size
+        self.rank = rank
+        self.name = name
+        self._send_seq: Dict[Tuple[int, str], int] = {}
+        self._recv_seq: Dict[Tuple[int, str], int] = {}
+        self._epoch = 0
+        self._box = self._get_or_create_mailbox()
+
+    def _get_or_create_mailbox(self):
+        """Rendezvous on ONE named mailbox across racing participants.
+        A losing creator's failure surfaces asynchronously, so creation is
+        confirmed with a ping before the handle is trusted; on any failure
+        we fall back to looking the winner up."""
+        import time as _t
+
+        rt = self.runtime
+        last = None
+        for _ in range(100):
+            try:
+                return rt.get_actor(self._MAILBOX)
+            except Exception as e:  # noqa: BLE001 — not registered yet
+                last = e
+            try:
+                h = rt.remote(_P2PMailbox).options(
+                    name=self._MAILBOX, lifetime="detached",
+                    max_concurrency=64).remote()
+                rt.get(h.arrive.remote("__ping__", 0, 1, 5), timeout=30)
+                return h
+            except Exception as e:  # noqa: BLE001 — lost the race
+                last = e
+                _t.sleep(0.05)
+        raise RuntimeError(f"mailbox rendezvous failed: {last!r}")
+
+    def _key(self, src: int, dst: int, tag: str, seq: int):
+        return (self.name, src, dst, tag, seq)
+
+    def send(self, tensor, dst_rank: int, tag: str = "") -> None:
+        edge = (dst_rank, tag)
+        seq = self._send_seq.get(edge, 0)
+        self.runtime.get(self._box.put.remote(
+            self._key(self.rank, dst_rank, tag, seq),
+            torch.as_tensor(tensor)), timeout=60)
+        # advance only on success: a timed-out op must not desync the
+        # edge's sequence numbering (a retry re-targets the same seq)
+        self._send_seq[edge] = seq + 1
+
+    def recv(self, src_rank: int, tag: str = "", timeout: float = 60.0):
+        edge = (src_rank, tag)
+        seq = self._recv_seq.get(edge, 0)
+        value = self.runtime.get(self._box.take.remote(
+            self._key(src_rank, self.rank, tag, seq), timeout),
+            timeout=timeout + 10)
+        self._recv_seq[edge] = seq + 1  # advance only on success
+        return value
+
+    def reduce(self, tensor, dst_rank: int = 0, op: str = "sum"):
+        """Rooted reduce: the reduced tensor on the root, None on the
+        other ranks (reference: collective.py:380)."""
+        _check_op(op)
+        if self.rank != dst_rank:
+            self.send(tensor, dst_rank, tag="__reduce__")
+            return None
+        parts = [torch.as_tensor(tensor)]
+        for r in range(self.world_size):
+            if r != self.rank:
+                parts.append(self.recv(r, tag="__reduce__"))
+        return _HOST_REDUCERS[op](torch.stack(parts))
+
+    def gather(self, tensor, dst_rank: int = 0):
+        """Rooted gather: the root gets [world, ...] in rank order, the
+        other ranks None (reference: collective.py:428)."""
+        if self.rank != dst_rank:
+            self.send(tensor, dst_rank, tag="__gather__")
+            return None
+        out = [None] * self.world_size
+        out[self.rank] = torch.as_tensor(tensor)
+        for r in range(self.world_size):
+            if r != self.rank:
+                out[r] = self.recv(r, tag="__gather__")
+        return torch.stack(out)
+
+    def destroy(self) -> None:
+        """Clear this group's mailbox state. Call from ONE rank after the
+        cohort finishes; REQUIRED before reusing a group name — a new
+        cohort under a stale name would see the old cohort's barrier
+        counts and release its barriers early."""
+        self.runtime.get(self._box.reset_group.remote(self.name), timeout=30)
+
+    def barrier(self, timeout: float = 60.0) -> None:
+        epoch = self._epoch
+        self.runtime.get(self._box.arrive.remote(
+            self.name, epoch, self.world_size, timeout),
+            timeout=timeout + 10)
+        self._epoch += 1  # advance only on success
 
 
 # -- in-graph collectives -----------------------------------------------------

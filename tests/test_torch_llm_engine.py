@@ -434,5 +434,7 @@ def test_llm_server_plain_and_stream_match_jax(server, pair):
 
 
 def test_llm_server_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # checkpoint_path is ported (tests/test_torch_llm_app.py); a directory
+    # without arrays raises before any model is built.
+    with pytest.raises(FileNotFoundError, match="no checkpoint arrays"):
         LLMServer(checkpoint_path="/nonexistent", device="cpu")
