@@ -167,10 +167,31 @@ Phases; any failure exits non-zero:
      llama-1b drawn from seed 0: four requests' tokens (three greedy, one
      seeded at temperature 0.8) equal LLMServer(params=the same tree)'s;
      the checkpoint's GB, save and restore seconds (~30-90 s in all);
-  9. prints the kernels as one JSON line (each entry also with its
+  9. the LLM path's telemetry and external envs. 9a
+     (``telemetry_phase``): llama-1b with phase 6's engine (8 slots,
+     chunk 128, page 16, decode block 16; bf16, random weights from seed
+     0), telemetry on and the port's tracer enabled: 16 requests of
+     128-token prompts and 128 new tokens, each with a trace context, a
+     prefix hit (>= 112 tokens matched) and a session exported and
+     imported. Gates, exact: the registry's token, prefix hit/miss and
+     tokens-saved counters moved as the engine's counters; the TTFT,
+     stage and decode-per-token histograms one observation a request; the
+     page gauges the pool's counts after the drain; rt_llm_roofline_frac
+     decode_profile()'s; one llm.request span a request, parented to its
+     context, with the four stage children, durations equal to its timing
+     within 1 us. Then decode step ms and tokens/s with telemetry on and
+     off in alternating pairs (printed only). 9b (``external_phase``): DQN
+     on ExternalDQNWorker, fed by a CartPole simulator thread that owns
+     its loop, 3 iterations of 512 rows: learner on the card, policy on
+     the CPU, finite losses, next_obs[t] == obs[t+1] within an episode,
+     the simulator ends; then a PolicyServerInput served to 2 PolicyClient
+     threads over HTTP on localhost (10 episodes each): every episode
+     ends, the server shuts down; env-steps/s, HTTP round trips/s and the
+     learner's ms an update. No attention kernel on 9b (~30-60 s for 9);
+ 10. prints the kernels as one JSON line (each entry also with its
      launches a step on phases 5h and 5i, a rank on phase 5j's
-     ring-flash and Ulysses, on phase 7c and a step of phase 8b), the
-     card again, and last {"ok": true, "device": {...}}.
+     ring-flash and Ulysses, on phase 7c, a step of phase 8b and phases
+     9a and 9b), the card again, and last {"ok": true, "device": {...}}.
 
 Between phases 5 and 6 it also trains gpt2-774m at bench.py's configuration
 (batch 8, seq 1024, bf16, fp32 master, adamw_lowmem, remat_policy="mem2",
@@ -772,6 +793,10 @@ def main(argv):
     # -- 8. the Train library: tensors on the object plane, TorchTrainer,
     # TorchPredictor, LLMServer(checkpoint_path=) ------------------------------
     tl = train_library_phase(torch, A, dev, root)
+    # -- 9. the LLM path's telemetry; external envs feeding a learner on the
+    # card ----------------------------------------------------------------
+    tele = telemetry_phase(torch, A, dev)
+    ext = external_phase(torch, A, dev)
     print(f"north-star paths on {card}: gpt2-774m/mem2 step "
           f"{train_774m['step_ms']:.3f} ms, MFU {train_774m['mfu_pct']:.3f}%, "
           f"peak memory {train_774m['peak_gb']:.3f} GB; gpt2-1.5b (bench_15b)"
@@ -782,7 +807,13 @@ def main(argv):
           f"{ppo['iteration_ms']:.4f} ms on CUDA events; PPO-AtariSim "
           f"(actor-based, CPU rollout) {rl['env_steps_s']:.1f} env-steps/s, "
           f"rollout {rl['rollout_ms']:.1f} ms and learner "
-          f"{rl['learner_ms']:.1f} ms an iteration")
+          f"{rl['learner_ms']:.1f} ms an iteration; external DQN "
+          f"{ext['env_steps_s']:.1f} env-steps/s, learner "
+          f"{ext['learner_ms']:.3f} ms an update, policy server "
+          f"{ext['round_trips_s']:.1f} HTTP round trips/s; llama-1b decode "
+          f"step with telemetry on/off "
+          + ", ".join(f"{p['on']['step_ms']}/{p['off']['step_ms']}"
+                      for p in tele["pairs"]) + " ms")
     print("other training paths on " + card + ": " + "; ".join(
         f"gpt2-355m seq {seq}: {r['tokens_s']:.1f} tokens/s, MFU "
         f"{r['mfu_pct']:.3f}%, peak memory {r['peak_gb']:.3f} GB"
@@ -798,7 +829,7 @@ def main(argv):
            else "")
         for name, r in rl7c.items() if "wall_s" in r))
 
-    # -- 9. the record --------------------------------------------------------
+    # -- 10. the record -------------------------------------------------------
     kernels = []
     for name, r in rows.items():
         kernels.append(dict(name=name, route="cuda", source=r["source"],
@@ -858,6 +889,8 @@ def main(argv):
                                      for r in sp4]
         k["launches_rllib_7c"] = rl7c["launches"][name]
         k["launches_train_8b_per_step"] = tl["launches_per_step"][name]
+        k["launches_telemetry_9a"] = tele["launches"][name]
+        k["launches_external_9b"] = ext["launches"][name]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
@@ -3344,10 +3377,12 @@ def tp2_phase(torch, ref, device="cuda"):
 
 def _tp2_rank(rank, world, store, out, device, ref):
     """One of phase 6b's ranks (a spawned process)."""
+    import pickle
     import traceback
 
     try:
-        out.put((rank, _tp2_body(rank, world, store, device, ref), None))
+        out.put((rank, pickle.dumps(_tp2_body(rank, world, store, device,
+                                              ref)), None))
     except BaseException:  # reported to the parent, which fails the phase
         out.put((rank, None, traceback.format_exc()))
 
@@ -3534,10 +3569,15 @@ def _tp2_body(rank, world, store, device, ref):
 def run_ranks(target, world, args, timeout_s, what):
     """Spawn ``world`` processes ``target(rank, world, store, out, *args)``
     that join one gloo group over a ``file://`` store and put (rank,
-    record, error) on ``out``; returns the records by rank, and fails the
-    phase on a rank's error or after ``timeout_s`` without a record. Every
-    process is joined or terminated before it returns."""
+    pickled record, error) on ``out``; returns the records by rank, and
+    fails the phase on a rank's error or after ``timeout_s`` without a
+    record. Every process is joined or terminated before it returns. A
+    record travels as ``pickle.dumps`` bytes: put on the queue as it is,
+    its tensors would be shared through file descriptors that the parent
+    fetches from the rank while unpickling, and a rank that has already
+    exited by then fails the phase (EOFError)."""
     import multiprocessing as mp
+    import pickle
     import queue as queue_mod
     import tempfile
 
@@ -3554,7 +3594,7 @@ def run_ranks(target, world, args, timeout_s, what):
             rank, rec, err = out.get(timeout=timeout_s)
             if err is not None:
                 error = f"rank {rank}: {err}"
-            recs[rank] = rec
+            recs[rank] = None if rec is None else pickle.loads(rec)
     except queue_mod.Empty:
         error = f"ranks gave no result within {timeout_s} s"
     finally:
@@ -3613,10 +3653,12 @@ def sp4_phase(torch, device="cuda", shapes=SP4_SHAPES):
 
 def _sp4_rank(rank, world, store, out, device, shapes):
     """One of phase 5j's ranks (a spawned process)."""
+    import pickle
     import traceback
 
     try:
-        out.put((rank, _sp4_body(rank, world, store, device, shapes), None))
+        out.put((rank, pickle.dumps(_sp4_body(rank, world, store, device,
+                                              shapes)), None))
     except BaseException:  # reported to the parent, which fails the phase
         out.put((rank, None, traceback.format_exc()))
 
@@ -4081,6 +4123,378 @@ def train_library_phase(torch, A, dev, root):
     print(f"phase 8 (the Train library): {time.perf_counter() - t_phase:.3f}"
           f" s wall; {card}")
     return out
+
+
+# -- phase 9: the LLM path's telemetry, and external envs --------------------
+
+TELEMETRY_REQUESTS = 16  # 9a: traced requests, 128-token prompts
+TELEMETRY_NEW = 128      # 9a: new tokens a request
+TELEMETRY_PAIRS = 2      # 9a: (on, off) timing pairs
+TELEMETRY_TIMED = 8      # 9a: requests of each timed run (all 8 slots)
+# 9a: a span's duration against the request's timing dict, in seconds.
+# Spans hold epoch seconds in float64 (spacing 2.4e-7 s near 1.8e9 s).
+SPAN_TOL_S = 1e-6
+EXTERNAL_ITERS = 3       # 9b: DQN iterations on ExternalDQNWorker
+EXTERNAL_FRAGMENT = 512  # 9b: rows an iteration (= learning_starts)
+EXTERNAL_CLIENTS = 2     # 9b: PolicyClient threads
+EXTERNAL_EPISODES = 10   # 9b: episodes a client, each at most
+EXTERNAL_STEPS = 200     # steps long
+
+
+def llm_series(registry):
+    """The ``rt_llm_*`` series of a metrics registry: counters and gauges
+    by tag key, histograms by their observation counts."""
+    out = {}
+    for name, (kind, data) in registry.collect_all().items():
+        if name.startswith("rt_llm_"):
+            out[name] = {k: v["count"] if kind == "histogram" else v
+                         for k, v in data.items()}
+    return out
+
+
+def telemetry_phase(torch, A, dev):
+    """Phase 9a: the LLM path's telemetry at llama-1b's width (phase 6's
+    engine, random bf16 weights from seed 0), telemetry on (the default)
+    and the port's tracer enabled: 16 traced requests of 128 + 128
+    tokens, a prefix hit and a session exported and imported. Gates, all
+    exact: the registry's token, prefix hit/miss and tokens-saved
+    counters moved as the engine's own counters; the TTFT, stage and
+    decode-per-token histograms one observation a request; the page
+    gauges the pool's counts after the drain; rt_llm_roofline_frac
+    decode_profile()'s; each request one llm.request span parented to its
+    context with the four stage children, durations equal to its timing
+    within SPAN_TOL_S. Then decode step ms and tokens/s with telemetry on
+    and off in alternating pairs (printed, not gated)."""
+    import numpy as np
+
+    from ray_tpu_torch.core.config import config
+    from ray_tpu_torch.llm.engine import SlotEngine
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.observability import metrics, tracing
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    cfg = llama.CONFIGS["llama-1b"]
+    model = llama.Llama(cfg, torch.Generator(device=dev).manual_seed(0),
+                        dev).to(cfg.dtype).requires_grad_(False)
+    require(config().telemetry_enabled, "9a: telemetry is on by default")
+    tracer = tracing.get_tracer()
+    tracer.clear()
+    tracer.enable()
+    engine = SlotEngine(model, num_slots=8, chunk=128, page_size=16,
+                        decode_block=16, device=dev)
+    engine.warmup()
+    rng = np.random.default_rng(9)
+
+    def prompt():
+        return rng.integers(1, cfg.vocab_size, size=128).tolist()
+
+    def ctx():
+        return os.urandom(16).hex(), os.urandom(8).hex()
+
+    before = llm_series(metrics.registry)
+    counters = ("tokens_generated", "prefix_hits", "prefix_misses",
+                "prefix_tokens_saved")
+    start = {c: getattr(engine, c) for c in counters}
+    A.reset_launch_counts()
+    engine.reset_decode_profile()
+    traced = []  # (context, handle)
+
+    def submit(p, **kw):
+        c = ctx()
+        traced.append((c, engine.submit(p, max_new=TELEMETRY_NEW,
+                                        trace_ctx=c, **kw)))
+        return traced[-1][1]
+
+    prompts = [prompt() for _ in range(TELEMETRY_REQUESTS)]
+    drain(engine, [submit(p) for p in prompts])
+    hit = submit(prompts[0])
+    drain(engine, [hit])
+    drain(engine, [submit(prompt(), session_id="phase9")])
+    snap = engine.export_session("phase9")
+    engine.clear_prefix_cache()
+    imported = engine.import_session(snap)
+    prof = engine.decode_profile()
+    launches = {f.__name__: f.launches
+                for f in A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS}
+    after = llm_series(metrics.registry)
+
+    def moved(name, key=()):
+        return after.get(name, {}).get(key, 0) - before.get(name, {}).get(
+            key, 0)
+
+    n = len(traced)
+    own = {c: getattr(engine, c) - start[c] for c in counters}
+    reg = {"tokens_generated": moved("rt_llm_tokens_generated_total"),
+           "prefix_hits": moved("rt_llm_prefix_hit", (("result", "hit"),)),
+           "prefix_misses": moved("rt_llm_prefix_hit",
+                                  (("result", "miss"),)),
+           "prefix_tokens_saved": moved("rt_llm_prefix_tokens_saved")}
+    hists = {"ttft": moved("rt_llm_ttft_seconds"),
+             "decode_per_token": moved("rt_llm_decode_per_token_seconds")}
+    hists.update({f"stage {s}": moved("rt_llm_stage_seconds",
+                                      (("stage", s),))
+                  for s in ("admission", "queue", "prefix_match", "prefill",
+                            "decode")})
+    gauges = {"pages_used": after["rt_llm_pages_used"][()],
+              "pages_free": after["rt_llm_pages_free"][()],
+              "roofline_frac": after["rt_llm_roofline_frac"][()]}
+    matched = hit.result(timeout=0).timing["matched_tokens"]
+    print(f"9a telemetry on llama-1b: {n} traced requests; registry "
+          f"{reg} vs the engine's {own}; histogram counts {hists} (expect "
+          f"{n} each); page gauges used {gauges['pages_used']} free "
+          f"{gauges['pages_free']} vs the pool's {engine.pages_used}, "
+          f"{engine.pages_free}; rt_llm_roofline_frac "
+          f"{gauges['roofline_frac']} vs decode_profile "
+          f"{prof['roofline_frac']}; prefix hit matched {matched}; session "
+          f"import {imported}; kernel launches {launches}")
+    require(reg == own and own["tokens_generated"] == n * TELEMETRY_NEW,
+            "9a: the registry's counters moved as the engine's own")
+    require(own["prefix_hits"] == 1 and matched >= 112,
+            "9a: one prefix hit of >= 112 tokens")
+    require(all(v == n for v in hists.values()),
+            "9a: one observation a request in each histogram")
+    require(gauges["pages_used"] == engine.pages_used
+            and gauges["pages_free"] == engine.pages_free,
+            "9a: the page gauges are the pool's counts after the drain")
+    require(prof["steps"] > 0
+            and gauges["roofline_frac"] == prof["roofline_frac"],
+            "9a: rt_llm_roofline_frac is decode_profile()'s")
+    require(imported["pages_imported"] > 0, "9a: the session's pages "
+            "were imported")
+
+    by_trace = {}
+    for s in tracer.spans("llm."):
+        by_trace.setdefault(s.trace_id, []).append(s)
+    worst = 0.0
+    for (trace_id, parent), h in traced:
+        mine = by_trace.get(trace_id, [])
+        roots = [s for s in mine if s.name == "llm.request"]
+        require(len(roots) == 1 and roots[0].parent_id == parent,
+                f"9a: one llm.request span under trace {trace_id}'s "
+                "context")
+        root = roots[0]
+        kids = {s.name: s for s in mine if s.parent_id == root.span_id}
+        t = h.result(timeout=0).timing
+        stages = ("admission", "queue", "prefill", "decode")
+        require(all(f"llm.{st}" in kids for st in stages)
+                and len(kids) == 4 + (t["prefix_match_s"] > 0),
+                f"9a: llm.request's children under trace {trace_id}: "
+                f"{sorted(kids)}")
+        worst = max([worst, abs(root.end_s - root.start_s - t["total_s"])]
+                    + [abs(kids[f"llm.{st}"].end_s - kids[f"llm.{st}"].start_s
+                           - t[f"{st}_s"]) for st in stages])
+    print(f"9a spans: {n} llm.request trees, worst |span - timing| "
+          f"{worst:.3e} s (tol {SPAN_TOL_S})")
+    require(worst <= SPAN_TOL_S, "9a: span durations equal timing")
+
+    def timed_run(on):
+        config().apply_overrides({"telemetry_enabled": on})
+        tracer.enabled = on
+        engine.reset_decode_profile()
+        t0 = time.perf_counter()
+        hs = [engine.submit(prompt(), max_new=TELEMETRY_NEW, trace_ctx=ctx())
+              for _ in range(TELEMETRY_TIMED)]
+        drain(engine, hs)
+        dt = time.perf_counter() - t0
+        p = engine.decode_profile()
+        engine.clear_prefix_cache()
+        return {"step_ms": p["avg_step_ms"],
+                "tokens_s": TELEMETRY_TIMED * TELEMETRY_NEW / dt}
+
+    pairs = []
+    try:
+        for _ in range(TELEMETRY_PAIRS):
+            pairs.append({"on": timed_run(True), "off": timed_run(False)})
+    finally:
+        config().apply_overrides({"telemetry_enabled": True})
+        tracer.disable()
+        tracer.clear()
+    for i, pair in enumerate(pairs):
+        print(f"9a pair {i} on {card}: decode step ms telemetry on "
+              f"{pair['on']['step_ms']}, off {pair['off']['step_ms']}; "
+              f"tokens/s on {pair['on']['tokens_s']}, off "
+              f"{pair['off']['tokens_s']} ({TELEMETRY_TIMED} requests of "
+              f"128 + {TELEMETRY_NEW} tokens)")
+    engine.stop()
+    del engine, model
+    torch.cuda.empty_cache()
+    print(f"phase 9a (LLM telemetry): {time.perf_counter() - t_phase:.3f} s "
+          f"wall; {card}")
+    return {"launches": launches, "pairs": pairs, "span_worst_s": worst}
+
+
+def external_phase(torch, A, dev):
+    """Phase 9b: external envs feeding a learner on the card. DQN with
+    ExternalDQNWorker (``_worker_cls``) for EXTERNAL_ITERS iterations,
+    fed by a CartPole simulator thread that owns its loop, one episode
+    at a time; then a PolicyServerInput served to EXTERNAL_CLIENTS
+    PolicyClient threads over HTTP on localhost, with the learner's
+    weights. Gates: the learner's parameters and optimizer state on the
+    card and the worker's policy on the CPU; finite losses; within an
+    episode next_obs[t] == obs[t+1]; the simulator and every client
+    episode end; the server shuts down. Prints env-steps/s, HTTP round
+    trips/s and the learner's ms an update (CUDA events)."""
+    import threading
+
+    import numpy as np
+
+    from ray_tpu_torch.rllib import DQN, DQNConfig
+    from ray_tpu_torch.rllib.env import FastCartPole
+    from ray_tpu_torch.rllib.external import (ExternalDQNWorker, ExternalEnv,
+                                              PolicyClient,
+                                              PolicyServerInput)
+    from ray_tpu_torch.rllib.sample_batch import DONES, NEXT_OBS, OBS
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    stop = threading.Event()
+
+    class CartPoleSim(ExternalEnv):
+        def __init__(self):
+            super().__init__(obs_shape=(4,), num_actions=2)
+            self._sim = FastCartPole(num_envs=1, seed=7)
+
+        def run(self):
+            while not stop.is_set():
+                eid = self.start_episode()
+                obs = self._sim.vector_reset()[0]
+                done = False
+                while not done:
+                    action = self.get_action(eid, obs)
+                    nobs, rew, dones, _ = self._sim.vector_step(
+                        np.array([action]))
+                    self.log_returns(eid, float(rew[0]))
+                    obs, done = nobs[0], bool(dones[0])
+                self.end_episode(eid, obs)
+
+    class ExternalDQN(DQN):
+        _worker_cls = ExternalDQNWorker
+
+    cfg = (DQNConfig().environment(CartPoleSim)
+           .rollouts(rollout_fragment_length=EXTERNAL_FRAGMENT)
+           .training(learning_starts=EXTERNAL_FRAGMENT).debugging(seed=0))
+    A.reset_launch_counts()
+    algo = ExternalDQN(cfg)  # the learner on the card
+    worker = algo.workers.local_worker
+    sample, batches = worker.sample, []
+
+    def recorded(*args, **kw):
+        batches.append(sample(*args, **kw))
+        return batches[-1]
+
+    worker.sample = recorded
+    _, _, update_ms = rl7c_record(torch, algo)
+    results, walls = [], []
+    for _ in range(EXTERNAL_ITERS):
+        t = time.perf_counter()
+        results.append(algo.train())
+        walls.append(time.perf_counter() - t)
+    worker.sample = sample
+    rl7c_on_card("9b ExternalDQN", algo.params, algo.target_params,
+                 algo.opt_state)
+    rl7c_policy_on_cpu("9b ExternalDQN", worker.policy)
+    losses = [r["loss"] for r in results]
+    require(all(x is not None and math.isfinite(x) for x in losses),
+            f"9b: finite losses every iteration ({losses})")
+    rl7c_finite("9b ExternalDQN", results)
+    rows = broken = 0
+    for b in batches:
+        for t in range(len(b[OBS]) - 1):
+            if not b[DONES][t]:
+                rows += 1
+                broken += not np.array_equal(b[NEXT_OBS][t], b[OBS][t + 1])
+    require(rows > 0 and broken == 0, f"9b: within an episode next_obs[t] "
+            f"== obs[t+1] ({broken} of {rows} rows broken)")
+    stop.set()
+    deadline = time.perf_counter() + 120
+    while worker.env.is_alive() and time.perf_counter() < deadline:
+        try:
+            worker.sample(rollout_length=8, timeout_s=1.0)
+        except TimeoutError:
+            pass
+    worker.env.join(timeout=5)
+    require(not worker.env.is_alive(), "9b: the simulator thread ended")
+    steps = sum(r["timesteps_this_iter"] for r in results)
+    env_steps_s = steps / sum(walls)
+    learner_ms = float(np.median(update_ms))
+    print(f"9b ExternalDQN on {card}: {EXTERNAL_ITERS} iterations, losses "
+          f"{losses}, {steps} env steps in {sum(walls):.3f} s = "
+          f"{env_steps_s:.1f} env-steps/s; learner {len(update_ms)} "
+          f"updates, median {learner_ms:.3f} ms an update (CUDA events), "
+          f"min {min(update_ms):.3f} max {max(update_ms):.3f}; {rows} "
+          "chained rows checked")
+
+    server = PolicyServerInput(obs_shape=(4,), num_actions=2, port=0)
+    calls = [0] * EXTERNAL_CLIENTS
+    ends = [0] * EXTERNAL_CLIENTS
+    failures = []
+    try:
+        served = ExternalDQNWorker(server)
+        served.set_weights(worker.get_weights())
+        served.set_epsilon(0.0)
+
+        def client_loop(i):
+            client = PolicyClient(server.address, timeout_s=60.0)
+            sim = FastCartPole(num_envs=1, seed=100 + i)
+            try:
+                for _ in range(EXTERNAL_EPISODES):
+                    eid = client.start_episode()
+                    obs = sim.vector_reset()[0]
+                    done, n = False, 0
+                    while not done and n < EXTERNAL_STEPS:
+                        a = client.get_action(eid, obs)
+                        nobs, rew, dones, _ = sim.vector_step(np.array([a]))
+                        client.log_returns(eid, float(rew[0]))
+                        obs, done = nobs[0], bool(dones[0])
+                        n += 1
+                    client.end_episode(eid, obs)
+                    calls[i] += 2 * n + 2
+                    ends[i] += 1
+            except Exception as e:  # noqa: BLE001 — gated below
+                failures.append(repr(e))
+
+        threads = [threading.Thread(target=client_loop, args=(i,),
+                                    daemon=True)
+                   for i in range(EXTERNAL_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        served_rows = 0
+        deadline = t0 + 300
+        while (any(t.is_alive() for t in threads)
+               and time.perf_counter() < deadline):
+            try:
+                served_rows += len(served.sample(rollout_length=64,
+                                                 timeout_s=1.0)[OBS])
+            except TimeoutError:
+                pass
+        wall = time.perf_counter() - t0
+        for t in threads:
+            t.join(timeout=30)
+        require(not failures and not any(t.is_alive() for t in threads),
+                f"9b: the clients ran to their end ({failures})")
+        require(ends == [EXTERNAL_EPISODES] * EXTERNAL_CLIENTS,
+                f"9b: every client episode ended ({ends})")
+    finally:
+        server.shutdown()
+    server.join(timeout=30)
+    require(not server.is_alive(), "9b: the policy server shut down")
+    trips_s = sum(calls) / wall
+    launches = {f.__name__: f.launches
+                for f in A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS}
+    print(f"9b PolicyServerInput on {card}: {EXTERNAL_CLIENTS} clients x "
+          f"{EXTERNAL_EPISODES} episodes, {sum(calls)} HTTP round trips in "
+          f"{wall:.3f} s = {trips_s:.1f} round trips/s, {served_rows} rows "
+          f"served; attention kernel launches {launches}")
+    require(all(n == 0 for n in launches.values()),
+            "9b: no attention kernel on the external-env path")
+    algo.stop()
+    torch.cuda.empty_cache()
+    print(f"phase 9b (external envs): {time.perf_counter() - t_phase:.3f} s "
+          f"wall; {card}")
+    return {"launches": launches, "env_steps_s": env_steps_s,
+            "learner_ms": learner_ms, "round_trips_s": trips_s}
 
 
 if __name__ == "__main__":

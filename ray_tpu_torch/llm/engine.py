@@ -45,8 +45,15 @@ fetched on rank 0 only. Under tp > 1 a block runs eagerly, never as a
 CUDA graph: a gloo exchange stages through host memory and cannot sit
 inside a capture (a graph-captured NCCL path is a later ROADMAP item).
 
-Not ported here: the Prometheus gauges and the trace spans (both live in
-the JAX package's observability layer; ROADMAP Queue A item 5).
+Telemetry, at the JAX engine's points of a request's life: the
+``rt_llm_*`` family (``paged.llm_metrics``: prefix hits and tokens saved
+at admission, page gauges, TTFT and the token counter at delivery, the
+stage and decode-per-token histograms at finish, sessions, migrations and
+recoveries, the roofline gauges of measured windows) and, for a request
+that carries a trace context, ``llm.request`` with its stage spans laid
+out from the request's ``timing``. Both go to the observability module
+the caller passes (``observability=``; the port's own by default), and
+under tp only rank 0 emits: it alone admits and delivers.
 """
 
 from __future__ import annotations
@@ -63,6 +70,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import observability as default_observability
+from ..core.config import config
 from ..core.exceptions import EngineStoppedError
 from ..device import default_device
 from ..models import llama
@@ -70,11 +79,11 @@ from ..models.convert import tensor_from_numpy, tensor_to_numpy
 from ..parallel import sharding as shd
 from ..parallel.collective import all_gather
 from . import sampling
-from .paged import OverloadedError, PagePool, RadixIndex
+from .paged import OverloadedError, PagePool, RadixIndex, llm_metrics
 
-# The decode roof of decode_profile(): one H100 SXM's HBM3 bandwidth
-# (data sheet), in GB/s.
-H100_HBM_GBPS = 3350.0
+_LLM_STAGE_KEYS = {s: (("stage", s),) for s in
+                   ("admission", "queue", "prefix_match", "prefill",
+                    "decode")}
 
 
 @dataclass
@@ -150,6 +159,9 @@ class _Slot:
     # Chat-session identity: at finish the engine records the session's
     # transcript so it can be exported (KV page migration) or re-prefilled.
     session_id: Optional[str] = None
+    # (trace_id, parent_span_id) of the request's trace; at finish the
+    # stage stamps below become child spans on that trace.
+    trace_ctx: Optional[tuple] = None
     submit_t: float = 0.0  # monotonic submit time (TTFT + queue timeout)
     # Stamps (monotonic) + measured prefix-match cost: submit -> admit ->
     # first prefill dispatch -> first token -> finish.
@@ -190,7 +202,12 @@ class SlotEngine:
     built on every rank of its group) the engine places ``model``'s
     parameters on it in place (each rank passes the same values) and
     serves tp-sharded; requests go to rank 0, and the other ranks run the
-    follower loop (module docstring)."""
+    follower loop (module docstring).
+
+    ``observability`` is the module the engine's metrics and spans go to:
+    any object whose ``metrics`` and ``tracing`` have the calls of
+    ``ray_tpu_torch.observability`` (the default); in a Serve replica of
+    the JAX package's runtime, ``ray_tpu.observability``."""
 
     # Rule deltas over parallel.sharding.DEFAULT_RULES: the page pool's
     # heads axis is the KV-heads axis, which the training table leaves
@@ -205,7 +222,7 @@ class SlotEngine:
                  max_pending: Optional[int] = None,
                  queue_timeout_s: Optional[float] = None,
                  max_sessions: int = 256,
-                 mesh=None, rules=None, device=None):
+                 mesh=None, rules=None, device=None, observability=None):
         cfg = model.cfg
         if cfg.max_seq % chunk != 0:
             raise ValueError(
@@ -236,6 +253,7 @@ class SlotEngine:
         self.queue_timeout_s = queue_timeout_s
         self._model = model
         self._device = dev
+        self._obs = observability or default_observability
         self._cuda = dev.type == "cuda"
         self._stream = torch.cuda.current_stream(dev) if self._cuda else None
         self._rules = None if mesh is None else self._place(mesh, rules)
@@ -373,6 +391,11 @@ class SlotEngine:
         """Whether this rank schedules (rank 0 of the tp group)."""
         return self.rank == 0
 
+    def _metrics(self):
+        """The ``rt_llm_*`` family, or None: telemetry off, or a follower
+        (which replays cache operations and must not count them twice)."""
+        return llm_metrics(self._obs) if self.is_leader else None
+
     def _leader_only(self, what: str) -> None:
         if not self.is_leader:
             raise RuntimeError(
@@ -432,7 +455,8 @@ class SlotEngine:
                temperature: float = 0.0, eos_id: Optional[int] = None,
                on_token: Optional[Callable[[Optional[int]], None]] = None,
                seed: Optional[int] = None,
-               session_id: Optional[str] = None) -> RequestHandle:
+               session_id: Optional[str] = None,
+               trace_ctx: Optional[tuple] = None) -> RequestHandle:
         self._leader_only("submit")
         prompt = np.asarray(prompt, dtype=np.int32)
         if prompt.ndim != 1 or len(prompt) == 0:
@@ -448,11 +472,15 @@ class SlotEngine:
             raise ValueError(
                 f"request needs {n_total} KV pages but the pool only "
                 f"has {self._num_pages - 1} allocatable")
+        if trace_ctx is None:
+            # A direct submit still joins a trace open on this thread or
+            # task.
+            trace_ctx = self._obs.tracing.inject_context()
         handle = RequestHandle(len(prompt))
         slot = _Slot(handle=handle, prompt=prompt, max_new=max_new,
                      temperature=float(temperature), eos_id=eos_id,
                      on_token=on_token, submit_t=time.monotonic(),
-                     session_id=session_id)
+                     session_id=session_id, trace_ctx=trace_ctx)
         with self._work:
             if (self.max_pending is not None
                     and len(self._pending) >= self.max_pending):
@@ -538,7 +566,15 @@ class SlotEngine:
         """Drop every radix entry (and the pages only it held). Returns
         pages freed."""
         with self._lock:
-            return 0 if self._radix is None else self._radix.clear()
+            freed = 0 if self._radix is None else self._radix.clear()
+            self._publish_page_gauges()
+            return freed
+
+    def _publish_page_gauges(self) -> None:
+        m = self._metrics()
+        if m is not None:
+            m["pages_used"].set(float(self._pool.used_count))
+            m["pages_free"].set(float(self._pool.free_count))
 
     # -- stateful sessions (migration & drain) -----------------------------
 
@@ -563,6 +599,9 @@ class SlotEngine:
         self._sessions.move_to_end(session_id)
         while len(self._sessions) > self.max_sessions:
             self._sessions.popitem(last=False)
+        m = self._metrics()
+        if m is not None:
+            m["sessions_resident"].set(float(len(self._sessions)))
 
     def _run_control(self, fn, timeout: float = 60.0):
         """Run ``fn`` under the engine lock ON THE ENGINE THREAD at a step
@@ -619,6 +658,9 @@ class SlotEngine:
         if pages:
             # Pages stay index-owned: we hold the lock, so no eviction.
             frames = self._collective("gather", list(pages))
+        m = self._metrics()
+        if m is not None:
+            m["session_migrations"].inc(tags={"result": "export"})
         return {
             "session_id": session_id,
             "transcript": np.asarray(transcript, dtype=np.int32),
@@ -640,43 +682,54 @@ class SlotEngine:
 
     def _import_session_locked(self, snap: dict) -> dict:
         ps = self.page_size
-        if int(snap["page_size"]) != ps:
-            raise ValueError(
-                f"page_size mismatch: snapshot {snap['page_size']} "
-                f"vs engine {ps}")
-        transcript = np.asarray(snap["transcript"], dtype=np.int32)
-        frames = snap.get("pages_kv")
-        n_chunks = int(snap.get("covered_tokens", 0)) // ps
-        matched: List[int] = []
-        fresh: List[int] = []
-        if self._radix is not None and n_chunks > 0 and frames is not None:
-            kv_shape = tuple(self._cache["kv"].shape)
-            kv_shape = kv_shape[:4] + (self.cfg.num_kv_heads,) + kv_shape[5:]
-            if (tuple(frames.shape[:2]) != kv_shape[:2]
-                    or tuple(frames.shape[3:]) != kv_shape[3:]):
+        m = self._metrics()
+        try:
+            if int(snap["page_size"]) != ps:
                 raise ValueError(
-                    f"KV frame shape {tuple(frames.shape)} does not match "
-                    f"cache {kv_shape}")
-            matched, _ = self._radix.match(transcript[:n_chunks * ps])
-            need = n_chunks - len(matched)
-            if need > 0 and self._pool.free_count < need:
-                self._radix.evict(need - self._pool.free_count)
-            fresh = [self._pool.alloc() for _ in
-                     range(min(max(0, need), self._pool.free_count))]
-            if fresh:
-                have = len(matched)
-                self._write_frames_locked(
-                    fresh, frames[:, :, have:have + len(fresh)])
-            pages = matched + fresh
-            if pages:
-                self._radix.insert(transcript[:len(pages) * ps], pages)
-            # insert() took the index's own refs on NEW nodes; drop our
-            # allocation refs so the index is the sole owner.
-            for pg in fresh:
-                self._pool.unref(pg)
-        self._record_session_locked(
-            snap["session_id"], transcript, snap.get("seed", 0),
-            snap.get("temperature", 0.0))
+                    f"page_size mismatch: snapshot {snap['page_size']} "
+                    f"vs engine {ps}")
+            transcript = np.asarray(snap["transcript"], dtype=np.int32)
+            frames = snap.get("pages_kv")
+            n_chunks = int(snap.get("covered_tokens", 0)) // ps
+            matched: List[int] = []
+            fresh: List[int] = []
+            if (self._radix is not None and n_chunks > 0
+                    and frames is not None):
+                kv_shape = tuple(self._cache["kv"].shape)
+                kv_shape = (kv_shape[:4] + (self.cfg.num_kv_heads,)
+                            + kv_shape[5:])
+                if (tuple(frames.shape[:2]) != kv_shape[:2]
+                        or tuple(frames.shape[3:]) != kv_shape[3:]):
+                    raise ValueError(
+                        f"KV frame shape {tuple(frames.shape)} does not "
+                        f"match cache {kv_shape}")
+                matched, _ = self._radix.match(transcript[:n_chunks * ps])
+                need = n_chunks - len(matched)
+                if need > 0 and self._pool.free_count < need:
+                    self._radix.evict(need - self._pool.free_count)
+                fresh = [self._pool.alloc() for _ in
+                         range(min(max(0, need), self._pool.free_count))]
+                if fresh:
+                    have = len(matched)
+                    self._write_frames_locked(
+                        fresh, frames[:, :, have:have + len(fresh)])
+                pages = matched + fresh
+                if pages:
+                    self._radix.insert(transcript[:len(pages) * ps], pages)
+                # insert() took the index's own refs on NEW nodes; drop
+                # our allocation refs so the index is the sole owner.
+                for pg in fresh:
+                    self._pool.unref(pg)
+                self._publish_page_gauges()
+            self._record_session_locked(
+                snap["session_id"], transcript, snap.get("seed", 0),
+                snap.get("temperature", 0.0))
+        except Exception:
+            if m is not None:
+                m["session_migrations"].inc(tags={"result": "error"})
+            raise
+        if m is not None:
+            m["session_migrations"].inc(tags={"result": "import"})
         return {"session_id": snap["session_id"],
                 "pages_imported": len(fresh),
                 "pages_matched": len(matched),
@@ -730,8 +783,11 @@ class SlotEngine:
             self._record_session_locked(
                 session_id, np.asarray(transcript, dtype=np.int32),
                 seed, temperature)
-        return {"session_id": session_id,
-                "seconds": time.monotonic() - t0,
+        dt = time.monotonic() - t0
+        m = self._metrics()
+        if m is not None:
+            m["session_recovery"].observe(dt)
+        return {"session_id": session_id, "seconds": dt,
                 "matched_tokens": (res.timing or {}).get(
                     "matched_tokens", 0),
                 "transcript_len": int(len(toks))}
@@ -788,6 +844,7 @@ class SlotEngine:
             s.handle._finish("error", err)
             if s.on_token:
                 s.on_token(None)
+        self._publish_page_gauges()
 
     # -- admission (paged + radix match) -----------------------------------
 
@@ -870,11 +927,18 @@ class SlotEngine:
         self._tables[idx, n_total:] = 0
         s.prefill_offset = s.matched_len
         s.pos = 0
-        if s.matched_len > 0:
+        hit = s.matched_len > 0
+        if hit:
             self.prefix_hits += 1
             self.prefix_tokens_saved += s.matched_len
         else:
             self.prefix_misses += 1
+        m = self._metrics()
+        if m is not None:
+            m["prefix"].inc(tags={"result": "hit" if hit else "miss"})
+            if hit:
+                m["prefix_tokens"].inc(s.matched_len)
+        self._publish_page_gauges()
         s.admit_t = time.monotonic()
         self._slots[idx] = s
         return True
@@ -1129,7 +1193,7 @@ class SlotEngine:
         admit = s.admit_t or s.submit_t
         pre0 = s.prefill_start_t or admit
         first = s.first_tok_t or end
-        return {
+        timing = {
             "admission_s": max(0.0, admit - s.submit_t),
             "queue_s": max(0.0, pre0 - admit),
             "prefix_match_s": s.prefix_match_s,
@@ -1141,6 +1205,50 @@ class SlotEngine:
             "matched_tokens": s.matched_len,
             "produced_tokens": s.produced,
         }
+        m = self._metrics()
+        if m is not None:
+            st = m["stage"]
+            for stage in ("admission", "queue", "prefix_match", "prefill",
+                          "decode"):
+                st.observe_key(_LLM_STAGE_KEYS[stage], timing[f"{stage}_s"])
+            m["decode_per_token"].observe(timing["decode_per_token_s"])
+        return timing
+
+    def _emit_trace_spans(self, s: _Slot, timing: dict) -> None:
+        """The finished request's ``timing`` as spans on its trace: an
+        ``llm.request`` span parented to the caller's span, with
+        admission/queue/prefill/decode children laid end to end from the
+        same durations (and ``llm.prefix_match`` where the match took
+        time), so the span tree and ``timing`` agree by construction. The
+        stamps are monotonic; the wall-clock offset lines them up with
+        the caller's spans."""
+        tracing = self._obs.tracing
+        if not tracing.get_tracer().enabled:
+            return
+        off = time.time() - time.monotonic()
+        t0 = s.submit_t + off
+        trace_id, parent = s.trace_ctx
+        root = tracing.record_span(
+            "llm.request", trace_id=trace_id, parent_id=parent,
+            start_s=t0, end_s=t0 + timing["total_s"],
+            prompt_len=int(len(s.prompt)), produced=int(s.produced),
+            matched_tokens=int(s.matched_len))
+        if root is None:
+            return
+        cur = t0
+        for stage in ("admission", "queue", "prefill", "decode"):
+            dur = timing[f"{stage}_s"]
+            tracing.record_span(f"llm.{stage}", trace_id=trace_id,
+                                parent_id=root.span_id, start_s=cur,
+                                end_s=cur + dur)
+            cur += dur
+        if timing["prefix_match_s"] > 0.0:
+            # The match runs at admission into the prefill lane, across
+            # the queue/prefill boundary: its own child.
+            match_t0 = t0 + timing["admission_s"] + timing["queue_s"]
+            tracing.record_span("llm.prefix_match", trace_id=trace_id,
+                                parent_id=root.span_id, start_s=match_t0,
+                                end_s=match_t0 + timing["prefix_match_s"])
 
     def reset_decode_profile(self) -> None:
         """Zero the roofline window, so each phase measures its own
@@ -1153,35 +1261,55 @@ class SlotEngine:
     def decode_profile(self) -> dict:
         """Achieved-vs-peak HBM accounting for the decode loop: bytes a
         step must stream on every rank (params + the KV pages live slots
-        attend) over host wall time of steady pipeline intervals, against
-        tp H100s at 3350 GB/s each (``devices`` = tp; ranks that share
-        one card still count one roof each)."""
+        attend) over host wall time of steady pipeline intervals.
+        ``hbm_gbps`` is one card's bandwidth (``core.config``'s
+        ``hbm_bandwidth_gbps``, an H100 SXM's 3350 GB/s by default) and
+        ``devices`` the tp degree; the roof is their product (ranks that
+        share one card still count one roof each), and a roof <= 0 gives
+        ``roofline_frac`` 0.0. Publishes the ``rt_llm_roofline_frac`` and
+        ``rt_llm_decode_steps_per_s`` gauges of a measured window."""
         steps, wall = self._prof_steps, self._prof_wall
-        hbm_gbps = H100_HBM_GBPS * self.tp
+        hbm_gbps = float(config().hbm_bandwidth_gbps)
+        devices = self.tp
+        peak_gbps = hbm_gbps * devices
         if steps == 0 or wall <= 0.0:
-            return {"steps": 0, "wall_s": 0.0, "avg_step_ms": 0.0,
+            prof = {"steps": 0, "wall_s": 0.0, "avg_step_ms": 0.0,
                     "steps_per_s": 0.0, "bytes_per_step": 0,
                     "achieved_gbps": 0.0, "hbm_gbps": hbm_gbps,
-                    "devices": self.tp, "roofline_frac": 0.0}
-        achieved_gbps = self._prof_bytes / wall / 1e9
-        return {
-            "steps": steps,
-            "wall_s": round(wall, 6),
-            "avg_step_ms": round(wall / steps * 1e3, 4),
-            "steps_per_s": round(steps / wall, 2),
-            "bytes_per_step": int(self._prof_bytes / steps),
-            "achieved_gbps": round(achieved_gbps, 4),
-            "hbm_gbps": hbm_gbps,
-            "devices": self.tp,
-            "roofline_frac": achieved_gbps / hbm_gbps,
-        }
+                    "devices": devices, "roofline_frac": 0.0}
+        else:
+            achieved_gbps = self._prof_bytes / wall / 1e9
+            prof = {
+                "steps": steps,
+                "wall_s": round(wall, 6),
+                "avg_step_ms": round(wall / steps * 1e3, 4),
+                "steps_per_s": round(steps / wall, 2),
+                "bytes_per_step": int(self._prof_bytes / steps),
+                "achieved_gbps": round(achieved_gbps, 4),
+                "hbm_gbps": hbm_gbps,
+                "devices": devices,
+                "roofline_frac": (achieved_gbps / peak_gbps
+                                  if peak_gbps > 0 else 0.0),
+            }
+        # Only measured windows are published: an idle engine's zero
+        # would overwrite the last measured value of the gauges.
+        m = self._metrics()
+        if m is not None and steps > 0:
+            m["roofline_frac"].set(prof["roofline_frac"])
+            m["decode_steps"].set(prof["steps_per_s"])
+        return prof
 
     def _deliver(self, idx: int, s: _Slot, tok: int) -> None:
         s.last_token = tok
         s.produced += 1
         self.tokens_generated += 1
+        m = self._metrics()
+        if m is not None:
+            m["tokens"].inc(1.0)
         if s.produced == 1:
             s.first_tok_t = time.monotonic()
+            if m is not None:
+                m["ttft"].observe(s.first_tok_t - s.submit_t)
         s.handle._emit(tok)
         if s.on_token:
             s.on_token(tok)
@@ -1189,6 +1317,8 @@ class SlotEngine:
         out_of_room = (len(s.prompt) + s.produced) >= self.cfg.max_seq
         if hit_eos or s.produced >= s.max_new or out_of_room:
             s.handle.timing = self._request_timing(s)
+            if s.trace_ctx is not None:
+                self._emit_trace_spans(s, s.handle.timing)
             s.handle._finish("stop" if hit_eos else "length")
             if s.on_token:
                 s.on_token(None)
@@ -1206,3 +1336,4 @@ class SlotEngine:
                 self._release_slot_pages_locked(s)
                 self._tables[idx] = 0
                 self._slots[idx] = None
+                self._publish_page_gauges()

@@ -5,7 +5,8 @@ prefill (RadixAttention, SGLang, re-expressed over the page-table
 indirection of :mod:`ray_tpu_torch.models.llama`).
 
 The port's own copy of the JAX package's ``llm/paged.py``, which imports
-no JAX: same classes, same LRU and refcount behaviour.
+no JAX: same classes, same LRU and refcount behaviour, and the same
+``rt_llm_*`` metric family (``llm_metrics``).
 
 Division of labor with :mod:`ray_tpu_torch.models.llama`:
 
@@ -31,8 +32,9 @@ from __future__ import annotations
 
 import heapq
 import itertools
+import threading
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 # The typed admission-shed error, re-exported for
 # ``from .paged import OverloadedError``.
@@ -213,3 +215,91 @@ class RadixIndex:
         self._root.children.clear()
         self._nodes = 0
         return freed
+
+
+# -- rt_llm_* metrics: the JAX package's family, same names, descriptions,
+# boundaries and tag keys, created in the registry of whichever
+# observability module the engine was given (one family a module). ------
+
+_llm_metrics_cache: Dict[Any, Dict[str, Any]] = {}
+_llm_metrics_lock = threading.Lock()
+
+
+def llm_metrics(observability=None) -> Optional[Dict[str, Any]]:
+    """The LLM-engine metric family in ``observability.metrics`` (the
+    port's own ``ray_tpu_torch.observability`` by default), or None with
+    telemetry disabled (``core.config``'s ``telemetry_enabled``)."""
+    from ..core.config import config
+
+    if not config().telemetry_enabled:
+        return None
+    if observability is None:
+        from .. import observability
+    with _llm_metrics_lock:
+        family = _llm_metrics_cache.get(observability)
+        if family is None:
+            family = _llm_metrics_cache[observability] = _make_family(
+                observability.metrics)
+        return family
+
+
+def _make_family(metrics) -> Dict[str, Any]:
+    get_or_create = metrics.get_or_create
+    Counter, Gauge, Histogram = (metrics.Counter, metrics.Gauge,
+                                 metrics.Histogram)
+    return {
+        "prefix": get_or_create(
+            Counter, "rt_llm_prefix_hit",
+            "Prompt admissions by prefix-cache outcome", ("result",)),
+        "prefix_tokens": get_or_create(
+            Counter, "rt_llm_prefix_tokens_saved",
+            "Prompt tokens whose prefill was skipped"),
+        "pages_used": get_or_create(
+            Gauge, "rt_llm_pages_used", "KV pages allocated (incl. scratch)"),
+        "pages_free": get_or_create(
+            Gauge, "rt_llm_pages_free", "KV pages on the free list"),
+        "ttft": get_or_create(
+            Histogram, "rt_llm_ttft_seconds",
+            "Submit-to-first-token latency",
+            boundaries=[0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0]),
+        # Per-request stage breakdown: admission wait + queue wait +
+        # prefix match + prefill + per-token decode sum to roughly the
+        # end-to-end request latency.
+        "stage": get_or_create(
+            Histogram, "rt_llm_stage_seconds",
+            "LLM request latency attributed per stage",
+            boundaries=[0.0001, 0.001, 0.01, 0.1, 1.0, 10.0, 60.0],
+            tag_keys=("stage",)),
+        "decode_per_token": get_or_create(
+            Histogram, "rt_llm_decode_per_token_seconds",
+            "Mean inter-token decode latency per request",
+            boundaries=[0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0]),
+        "roofline_frac": get_or_create(
+            Gauge, "rt_llm_roofline_frac",
+            "Achieved decode HBM bytes/s over the configured "
+            "peak bandwidth (hbm_bandwidth_gbps x mesh size)"),
+        "decode_steps": get_or_create(
+            Gauge, "rt_llm_decode_steps_per_s",
+            "Steady-state decode steps/s over the current "
+            "roofline window"),
+        # Monotone token production, the rate source of a tok/s series (a
+        # gauge of engine.tokens_generated would reset on replica
+        # replacement and read as a negative rate).
+        "tokens": get_or_create(
+            Counter, "rt_llm_tokens_generated_total",
+            "Decode tokens produced (all requests)"),
+        # Stateful sessions: residency, export/import outcomes, and the
+        # crash path's re-prefill recovery latency.
+        "sessions_resident": get_or_create(
+            Gauge, "rt_llm_sessions_resident",
+            "Chat sessions whose transcript (and usually KV "
+            "prefix) is resident on this engine"),
+        "session_migrations": get_or_create(
+            Counter, "rt_llm_session_migrations",
+            "Session export/import attempts by outcome", ("result",)),
+        "session_recovery": get_or_create(
+            Histogram, "rt_llm_session_recovery_seconds",
+            "Crash-path session recovery latency "
+            "(transcript re-prefill on the new replica)",
+            boundaries=[0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0]),
+    }

@@ -20,8 +20,12 @@ the engine's follower loop.
 package writes). ``build_llm_app`` wraps the server in a Serve module the
 caller passes (``serve=``; ``ray_tpu.serve`` is one).
 
-Not ported: the trace context a Serve replica hands the engine (ROADMAP
-Queue A item 5).
+Telemetry goes to the observability module the caller passes
+(``observability=``, the port's own by default; ``ray_tpu.observability``
+behind ``ray_tpu.serve``, whose replica binds each request's trace context
+in that module and whose exporter ships that module's registry): each
+request hands the engine the context bound to its task, so the engine's
+``llm.*`` spans join the request's trace.
 """
 
 from __future__ import annotations
@@ -99,7 +103,8 @@ class LLMServer:
                  max_pending: Optional[int] = 256,
                  queue_timeout_s: Optional[float] = 30.0,
                  decode_block: int = 1, tp: int = 1,
-                 params: Optional[Mapping] = None, device=None):
+                 params: Optional[Mapping] = None, device=None,
+                 observability=None):
         mesh = None
         if tp > 1:
             device, mesh = _tp_mesh(tp, device)
@@ -116,7 +121,8 @@ class LLMServer:
                                  max_pending=max_pending,
                                  queue_timeout_s=queue_timeout_s,
                                  decode_block=decode_block,
-                                 mesh=mesh, device=module.wte.device)
+                                 mesh=mesh, device=module.wte.device,
+                                 observability=observability)
         if self.engine.is_leader:
             self.engine.warmup()
         self.engine.start()
@@ -147,7 +153,10 @@ class LLMServer:
             eos_id=None if eos_id is None else int(eos_id),
             seed=None if seed is None else int(seed),
             session_id=None if session_id is None else str(session_id),
-            on_token=lambda t: loop.call_soon_threadsafe(q.put_nowait, t))
+            on_token=lambda t: loop.call_soon_threadsafe(q.put_nowait, t),
+            # The request's trace context, bound to this task by the
+            # caller (a Serve replica): the engine thread's spans join it.
+            trace_ctx=self.engine._obs.tracing.get_request_context())
         if payload.get("stream"):
             # Hold the response until the first token (or failure), so an
             # admission shed is raised here and not after a stream began.
@@ -228,11 +237,13 @@ def build_llm_app(model: str = "llama-tiny", num_slots: int = 8,
                   max_pending: Optional[int] = 256,
                   queue_timeout_s: Optional[float] = 30.0,
                   decode_block: int = 1, tp: int = 1, *,
-                  serve, device=None, **deploy_opts):
+                  serve, device=None, observability=None, **deploy_opts):
     """A Serve application hosting the engine, for ``serve.run``.
     ``serve`` is the Serve module (``deployment``; ``ray_tpu.serve`` is
     one): the port imports no Serve runtime. ``device`` is the replica's
-    (CUDA unless the caller asks for the CPU)."""
+    (CUDA unless the caller asks for the CPU); ``observability`` the
+    module its telemetry goes to (``ray_tpu.observability`` behind
+    ``ray_tpu.serve``; the port's own when None)."""
     # Mirror the engine's admission knobs into the deployment config so
     # the router sheds at the same bound BEFORE a request crosses into
     # the replica (the engine's own bounded queue stays authoritative
@@ -245,4 +256,5 @@ def build_llm_app(model: str = "llama-tiny", num_slots: int = 8,
                     page_size=page_size, num_pages=num_pages,
                     prefix_cache=prefix_cache, max_pending=max_pending,
                     queue_timeout_s=queue_timeout_s,
-                    decode_block=decode_block, tp=tp, device=device)
+                    decode_block=decode_block, tp=tp, device=device,
+                    observability=observability)

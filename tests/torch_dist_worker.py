@@ -520,3 +520,49 @@ def case_llm_server_tp(rank, world, params, prompt, max_new):
         server.engine._thread.join(timeout=120)
         out["followed"] = np.asarray(not server.engine._thread.is_alive())
     return out
+
+
+def llm_series(registry):
+    """The ``rt_llm_*`` series of a metrics registry: counters and gauges
+    by tag key, histograms by their observation counts."""
+    out = {}
+    for name, (kind, data) in registry.collect_all().items():
+        if name.startswith("rt_llm_"):
+            out[name] = {k: v["count"] if kind == "histogram" else v
+                         for k, v in data.items()}
+    return out
+
+
+def case_llm_telemetry_tp(rank, world, params, prompt, max_new, engine_kw,
+                          trace_ctx):
+    """llama-tiny at tp = world with the port's tracer on: rank 0 serves
+    one traced request, then reads ``decode_profile`` with the configured
+    roof and with a roof of 0; every rank returns its ``rt_llm_*`` series
+    before and after, and its ``llm.*`` spans."""
+    from ray_tpu_torch.core.config import config
+    from ray_tpu_torch.llm.engine import SlotEngine
+    from ray_tpu_torch.observability import metrics, tracing
+
+    tracing.get_tracer().enable()
+    tp = SlotEngine(_tiny_llama(params), mesh=_mesh(tp=world), device="cpu",
+                    **engine_kw)
+    out = {"before": llm_series(metrics.registry)}
+    if rank == 0:
+        out["tokens"] = _drive(tp, prompt, max_new, trace_ctx=trace_ctx)
+        out["profile"] = tp.decode_profile()
+        out["roofline_gauge"] = metrics.registry.get(
+            "rt_llm_roofline_frac").collect()[1][()]
+        cfg = config()
+        roof = cfg.hbm_bandwidth_gbps
+        cfg.apply_overrides({"hbm_bandwidth_gbps": 0.0})
+        try:
+            out["profile_no_roof"] = tp.decode_profile()
+        finally:
+            cfg.apply_overrides({"hbm_bandwidth_gbps": roof})
+        tp.stop()
+    else:
+        tp.follow()
+    out["after"] = llm_series(metrics.registry)
+    out["spans"] = [(s.name, s.trace_id, s.parent_id)
+                    for s in tracing.get_tracer().spans("llm.")]
+    return out
