@@ -188,10 +188,28 @@ Phases; any failure exits non-zero:
      threads over HTTP on localhost (10 episodes each): every episode
      ends, the server shuts down; env-steps/s, HTTP round trips/s and the
      learner's ms an update. No attention kernel on 9b (~30-60 s for 9);
- 10. prints the kernels as one JSON line (each entry also with its
+ 10. the Tune library (``tune_phase``), trials as threads of this
+     process on InlineRuntime, each training gpt2-124m (batch 8, S 1024,
+     bf16 + fp32 master, default_optimizer(lr), default_rng(0) tokens)
+     through build_train from init(0). 10a: ASHA (max_t 8, grace 2,
+     reduction 2) over lr 3e-3, 1e-3, 3e-4, 1e-4, two trials at a time,
+     a function trainable reporting each step's loss: every trial's
+     losses bit-equal to build_train's at its lr, each stopped trial's
+     thread ended before its actor is killed with at most one step
+     launched past its last report, K1-K3 12 launches for each launched
+     step, the best trial the lowest last loss. 10b: PBT (interval 2)
+     over two trials of 6 steps, a checkpoint (params, optimizer state)
+     every 2: at least one exploit, the restored state bit-equal on the
+     card to the source checkpoint. 10c: Tuner(TorchTrainer) over two
+     lrs, 3 steps: each trial's one result equal to TorchTrainer.fit's
+     and build_train's. Prints wall s per trial, step ms in a trial
+     beside build_train's, each checkpoint's snapshot s and GB, peak
+     memory at two concurrent trials and the phase's launches;
+ 11. prints the kernels as one JSON line (each entry also with its
      launches a step on phases 5h and 5i, a rank on phase 5j's
-     ring-flash and Ulysses, on phase 7c, a step of phase 8b and phases
-     9a and 9b), the card again, and last {"ok": true, "device": {...}}.
+     ring-flash and Ulysses, on phase 7c, a step of phase 8b, phases 9a
+     and 9b and the Tune runs of phase 10), the card again, and last
+     {"ok": true, "device": {...}}.
 
 Between phases 5 and 6 it also trains gpt2-774m at bench.py's configuration
 (batch 8, seq 1024, bf16, fp32 master, adamw_lowmem, remat_policy="mem2",
@@ -797,6 +815,9 @@ def main(argv):
     # card ----------------------------------------------------------------
     tele = telemetry_phase(torch, A, dev)
     ext = external_phase(torch, A, dev)
+    # -- 10. the Tune library: ASHA, PBT and Tuner(TorchTrainer) sweeping
+    # gpt2-124m, trials as threads of this process -------------------------
+    tn = tune_phase(torch, A, dev, root)
     print(f"north-star paths on {card}: gpt2-774m/mem2 step "
           f"{train_774m['step_ms']:.3f} ms, MFU {train_774m['mfu_pct']:.3f}%, "
           f"peak memory {train_774m['peak_gb']:.3f} GB; gpt2-1.5b (bench_15b)"
@@ -829,7 +850,7 @@ def main(argv):
            else "")
         for name, r in rl7c.items() if "wall_s" in r))
 
-    # -- 10. the record -------------------------------------------------------
+    # -- 11. the record -------------------------------------------------------
     kernels = []
     for name, r in rows.items():
         kernels.append(dict(name=name, route="cuda", source=r["source"],
@@ -891,6 +912,7 @@ def main(argv):
         k["launches_train_8b_per_step"] = tl["launches_per_step"][name]
         k["launches_telemetry_9a"] = tele["launches"][name]
         k["launches_external_9b"] = ext["launches"][name]
+        k["launches_tune_10"] = tn["launches"][name]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
@@ -1494,8 +1516,9 @@ def rllib_phase(torch, A, dev, root):
 
 
 class InlineRuntime:
-    """A synchronous in-process actor runtime, for phase 7c's Ape-X and
-    phase 8's Train library: ``remote(cls)`` builds the actor in this
+    """A synchronous in-process actor runtime, for phase 7c's Ape-X,
+    phase 8's Train library and phase 10's Tune: ``remote(cls)`` builds
+    the actor in this
     process, and ``actor.method.remote(...)`` runs the method at once and
     returns a ref to its result; ``get``, ``put``, ``wait`` (every ref is
     ready), ``kill``, and placement groups of one slot that are always
@@ -1504,7 +1527,10 @@ class InlineRuntime:
     the port takes; this script imports no runtime of the JAX package.
     A train loop runs whole at ``run_train_fn.remote()``, so its reports
     arrive in the trainer's final drain: the JAX package's semantics on a
-    gang of one slot."""
+    gang of one slot. A Tune trial's actor runs its function on a thread
+    of its own (``start`` returns at once), so trials run at once as
+    threads of this process; ``options(num_cpus=, resources=)`` is
+    accepted and ignored."""
 
     class PlacementGroup:
         def __init__(self, bundles, strategy="PACK"):
@@ -4495,6 +4521,386 @@ def external_phase(torch, A, dev):
           f"wall; {card}")
     return {"launches": launches, "env_steps_s": env_steps_s,
             "learner_ms": learner_ms, "round_trips_s": trips_s}
+
+
+# -- phase 10: the Tune library ----------------------------------------------
+
+ASHA_LRS = (3e-3, 1e-3, 3e-4, 1e-4)  # 10a's grid (ASHA judges each trial
+ASHA = dict(max_t=8, grace_period=2,  # against those that reached a rung
+            reduction_factor=2)       # before it: the likely best first)
+ASHA_STEPS = 12    # 10a: the trainable's own length, past ASHA's max_t
+PBT_LRS = (3e-3, 1e-4)
+PBT_STEPS = 6      # 10b: steps a trial
+PBT_INTERVAL = 2   # 10b: the perturbation interval and checkpoint period
+TUNER_LRS = (1e-3, 3e-4)
+TUNER_STEPS = 3    # 10c: steps of each trial's fit
+
+
+class TuneRuntime(InlineRuntime):
+    """``InlineRuntime`` that notes, when it kills a trial's actor (the
+    last step of the runner's stop), whether the trial's thread still runs
+    and how many steps the trial had launched (``launched[trial_id]``, kept
+    by the trainable): ``killed[trial_id]``, one entry a stop (a PBT
+    exploit stops a trial and starts it again)."""
+
+    def __init__(self, launched):
+        self.launched, self.killed = launched, {}
+
+    def kill(self, actor):
+        obj = actor._obj
+        if getattr(obj, "_thread", None) is not None:
+            tid = obj._session.ctx.trial_id
+            self.killed.setdefault(tid, []).append(
+                (obj._thread.is_alive(), self.launched.get(tid, 0)))
+        super().kill(actor)
+
+
+def same_bits(torch, a, b):
+    """``a`` and ``b`` hold the same bits (compared on ``a``'s device)."""
+    b = b.to(a.device)
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (x.view(ints[x.element_size()]) for x in (a, b))
+    return torch.equal(a, b)
+
+
+def tensor_leaves(torch, tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tensor_leaves(torch, v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def tune_phase(torch, A, dev, root):
+    """Phase 10: the Tune library on the card. Trials run as threads of
+    this process (``TuneRuntime``), each training gpt2-124m (batch 8, S
+    1024, bf16 with an fp32 master, ``default_optimizer(lr)``, bench.py's
+    tokens from ``default_rng(0)``) through ``build_train`` from init(0).
+
+    10a: ASHA (``AsyncHyperBandScheduler(**ASHA)``) over ASHA_LRS, two
+    trials at a time, a function trainable of ASHA_STEPS steps reporting
+    the loss of each: every trial stopped by ASHA, its reported losses
+    bit-equal to a direct ``build_train`` run at its lr; when its actor is
+    killed its thread has ended, having launched at most one step past
+    its last report (a launch count taken after the stop), and K1-K3
+    launched 12 times for each step the trials launched; the best trial
+    the one with the lowest last loss. 10b: PBT over PBT_LRS, two at a
+    time, PBT_STEPS steps with a checkpoint (params and optimizer state)
+    every PBT_INTERVAL: at least one exploit, each exploiting trial's
+    parameters and optimizer state after its restore bit-equal on the card
+    to the source checkpoint's tensors, every thread ended before its
+    slot is reused. 10c: ``Tuner(TorchTrainer(...))`` over TUNER_LRS (two
+    at a time, each fit on its own InlineRuntime), TUNER_STEPS steps: each
+    trial's one result equal to a ``TorchTrainer.fit`` at its config and
+    to ``build_train``'s last loss. Every run: no general kernel. Prints
+    each trial's wall seconds, a step's ms in a trial beside
+    ``build_train``'s outside Tune, the snapshot seconds and GB of each
+    checkpoint, peak memory at two concurrent trials, and the phase's
+    K1-K3 launches. Returns the launches of the Tune runs by kernel and
+    the phase's numbers."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import (Checkpoint, RunConfig, TorchTrainer,
+                                     default_optimizer, session)
+    from ray_tpu_torch.train.checkpoint import tree_map
+    from ray_tpu_torch.train.step import build_train
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    work = os.path.join(root, "chiprun_out", "tune_10")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = gpt2_124m_config(gpt2, torch)
+    batch, seq = 8, 1024
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq + 1)).astype(np.int64)
+    data = {"tokens": torch.from_numpy(tokens).to(dev)}
+    wrappers = A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS
+    lock = threading.Lock()
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+
+    def build(lr):
+        return build_train(lambda g: gpt2.GPT2(cfg, g),
+                           lambda m, b: m.loss_fn(b),
+                           optimizer=default_optimizer(lr), master_fp32=True)
+
+    def launched_by(run):
+        """``run()``'s result and the kernel launches it made."""
+        A.reset_launch_counts()
+        result = run()
+        return result, {f.__name__: f.launches for f in wrappers}
+
+    def require_kernels(what, launches, steps):
+        require(all(launches[f.__name__] == cfg.num_layers * steps
+                    for f in A.KERNEL_WRAPPERS)
+                and all(launches[f.__name__] == 0
+                        for f in A.GENERAL_WRAPPERS),
+                f"{what}: K1-K3 {cfg.num_layers} launches for each of "
+                f"{steps} steps, no general kernel ({launches})")
+
+    def direct(lr, n):
+        """``n`` steps of ``build_train`` at ``lr`` from init(0), outside
+        Tune: (losses, step ms)."""
+        init, step_fn = build(lr)
+        model, opt, k = init(0)
+        losses, ms = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            model, opt, k, met = step_fn(model, opt, k, data)
+            losses.append(met["loss"].item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        del model, opt, met
+        return losses, ms
+
+    out = {"launches": {f.__name__: 0 for f in wrappers}}
+
+    def add_launches(launches):
+        for k, v in launches.items():
+            out["launches"][k] += v
+
+    try:
+        # -- 10a. ASHA ------------------------------------------------------
+        launched, rec = {}, {}
+
+        def asha_trainable(config):
+            tid = session.get_trial_id()
+            t0 = time.perf_counter()
+            init, step_fn = build(config["lr"])
+            model, opt, n = init(0)
+            r = rec[tid] = {"step_ms": []}
+            for _ in range(ASHA_STEPS):
+                with lock:
+                    launched[tid] = launched.get(tid, 0) + 1
+                ts = time.perf_counter()
+                model, opt, n, met = step_fn(model, opt, n, data)
+                loss = met["loss"].item()
+                r["step_ms"].append((time.perf_counter() - ts) * 1e3)
+                r["wall_s"] = time.perf_counter() - t0
+                tune.report({"loss": loss})
+
+        rt = TuneRuntime(launched)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        grid, launches = launched_by(lambda: tune.Tuner(
+            asha_trainable,
+            param_space={"lr": tune.grid_search(list(ASHA_LRS))},
+            tune_config=tune.TuneConfig(
+                scheduler=tune.AsyncHyperBandScheduler(
+                    metric="loss", mode="min", **ASHA),
+                max_concurrent_trials=2),
+            runtime=rt).fit())
+        asha_wall = time.perf_counter() - t0
+        peak_two = torch.cuda.max_memory_allocated() / 1e9
+        add_launches(launches)
+        require_kernels("10a", launches, sum(launched.values()))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        for t in grid.trials:
+            lr, tid = t.config["lr"], t.trial_id
+            require(t.status == "STOPPED" and t.error is None,
+                    f"10a lr {lr}: stopped by ASHA ({t.status}: {t.error})")
+            losses = [r["loss"] for r in t.results]
+            kills = rt.killed.get(tid, [])
+            require(len(kills) == 1 and not kills[0][0],
+                    f"10a lr {lr}: the trial's thread ended before its "
+                    f"actor was killed ({kills})")
+            require(kills[0][1] == launched[tid] <= len(losses) + 1,
+                    f"10a lr {lr}: no step launched after the stop "
+                    f"({launched[tid]} launched, {len(losses)} reported, "
+                    f"{kills[0][1]} at the kill)")
+            ref, ref_ms = direct(lr, len(losses))
+            print(f"10a lr {lr}: {t.status} at iteration {t.iteration} "
+                  f"(launched {launched[tid]} of {ASHA_STEPS} steps); "
+                  f"losses {losses}")
+            require(losses == ref, f"10a lr {lr}: the trial's losses "
+                                   f"bit-equal to build_train's {ref}")
+            rows.append(dict(lr=lr, iteration=t.iteration,
+                             launched=launched[tid],
+                             last_loss=t.last_result["loss"],
+                             wall_s=rec[tid]["wall_s"],
+                             step_ms=med(rec[tid]["step_ms"][1:]),
+                             direct_step_ms=med(ref_ms[1:])))
+        peak_one = torch.cuda.max_memory_allocated() / 1e9
+        best = grid.get_best_result("loss", "min")
+        lowest = min(grid.trials, key=lambda t: t.last_result["loss"])
+        require(best is lowest, "10a: the best trial has the lowest loss")
+        early = [r["lr"] for r in rows if r["iteration"] < ASHA["max_t"]]
+        print(f"10a ASHA on {card}: {len(rows)} trials, 2 at a time, "
+              f"{asha_wall:.3f} s wall; stopped before max_t "
+              f"{ASHA['max_t']}: lr {early}; best lr {best.config['lr']} "
+              f"(loss {best.last_result['loss']}); per trial (lr, wall s, "
+              f"median step ms in the trial beside build_train's alone) "
+              + "; ".join(f"{r['lr']}: {r['wall_s']:.3f} s, "
+                          f"{r['step_ms']:.3f} / {r['direct_step_ms']:.3f}"
+                          f" ms" for r in rows)
+              + f"; peak memory {peak_two:.3f} GB with two trials at once, "
+              f"{peak_one:.3f} GB for build_train alone; launches {launches}")
+        out["asha"] = dict(trials=rows, wall_s=asha_wall,
+                           peak_gb_two_trials=peak_two,
+                           peak_gb_one_run=peak_one, early_lrs=early,
+                           launches=launches)
+        del grid, best, lowest
+        torch.cuda.empty_cache()
+
+        # -- 10b. PBT -------------------------------------------------------
+        launched, restores, snaps = {}, [], []
+
+        def on_card(tree):
+            return tree_map(lambda x: x.to(dev)
+                            if isinstance(x, torch.Tensor) else x, tree)
+
+        def pbt_trainable(config):
+            tid = session.get_trial_id()
+            init, step_fn = build(config["lr"])
+            model, opt, n = init(0)
+            ckpt = session.get_checkpoint()
+            if ckpt is not None:
+                t0 = time.perf_counter()
+                state = ckpt.to_dict()
+                params = dict(model.named_parameters())
+                with torch.no_grad():
+                    for name, p in params.items():
+                        p.copy_(state["params"][name])
+                opt, n = on_card(state["opt_state"]), state["step"]
+                mine = list(params.values()) + tensor_leaves(torch, opt)
+                theirs = (tensor_leaves(torch, state["params"])
+                          + tensor_leaves(torch, state["opt_state"]))
+                same = len(mine) == len(theirs) and all(
+                    a.is_cuda == (dev.type == "cuda")
+                    and same_bits(torch, a, b) for a, b in zip(mine, theirs))
+                torch.cuda.synchronize()
+                restores.append(dict(trial=tid, lr=config["lr"], step=n,
+                                     tensors=len(mine), bit_equal=same,
+                                     restore_s=time.perf_counter() - t0))
+            while n < PBT_STEPS:
+                with lock:
+                    launched[tid] = launched.get(tid, 0) + 1
+                model, opt, n, met = step_fn(model, opt, n, data)
+                loss = met["loss"].item()
+                ck = None
+                if n % PBT_INTERVAL == 0:
+                    ck = Checkpoint.from_dict({
+                        "step": n, "params": dict(model.named_parameters()),
+                        "opt_state": opt})
+                t0 = time.perf_counter()
+                tune.report({"loss": loss}, checkpoint=ck)
+                if ck is not None:
+                    gb = sum(x.numel() * x.element_size() for x in
+                             tensor_leaves(torch, ck._data)) / 1e9
+                    snaps.append((time.perf_counter() - t0, gb))
+
+        rt = TuneRuntime(launched)
+        t0 = time.perf_counter()
+        grid, launches = launched_by(lambda: tune.Tuner(
+            pbt_trainable,
+            param_space={"lr": tune.grid_search(list(PBT_LRS))},
+            tune_config=tune.TuneConfig(
+                scheduler=tune.PopulationBasedTraining(
+                    metric="loss", mode="min",
+                    perturbation_interval=PBT_INTERVAL,
+                    hyperparam_mutations={"lr": list(ASHA_LRS)}, seed=0),
+                max_concurrent_trials=2),
+            runtime=rt).fit())
+        pbt_wall = time.perf_counter() - t0
+        add_launches(launches)
+        require_kernels("10b", launches, sum(launched.values()))
+        for t in grid.trials:
+            require(t.status == "TERMINATED" and t.error is None,
+                    f"10b {t.trial_id}: {t.status} {t.error}")
+        print(f"10b PBT restores {restores}")
+        require(restores, "10b: at least one exploit")
+        require(all(r["bit_equal"] for r in restores),
+                "10b: the exploiting trial's parameters and optimizer state "
+                "after its restore bit-equal on the card to the source "
+                "checkpoint's")
+        kills = [k for ks in rt.killed.values() for k in ks]
+        require(not any(alive for alive, _ in kills),
+                f"10b: every trial's thread ended before its actor was "
+                f"killed and its slot reused ({rt.killed})")
+        print(f"10b PBT on {card}: {len(grid.trials)} trials, 2 at a time, "
+              f"{pbt_wall:.3f} s wall; configs at the end "
+              f"{[t.config for t in grid.trials]}; exploits "
+              f"{len(restores)} (restore s "
+              f"{[round(r['restore_s'], 3) for r in restores]}); "
+              f"checkpoint snapshots to the host at report (s, GB) "
+              f"{[(round(s, 3), round(g, 3)) for s, g in snaps]}; launches "
+              f"{launches}")
+        out["pbt"] = dict(wall_s=pbt_wall, restores=restores, snapshots=snaps,
+                          launches=launches,
+                          configs=[t.config for t in grid.trials])
+        del grid
+        torch.cuda.empty_cache()
+
+        # -- 10c. Tuner(TorchTrainer(...)) ----------------------------------
+        fit_ms = {}
+
+        def train_fn(config):
+            init, step_fn = build(config["lr"])
+            model, opt, n = init(0)
+            for _ in range(TUNER_STEPS):
+                ts = time.perf_counter()
+                model, opt, n, met = step_fn(model, opt, n, data)
+                loss = met["loss"].item()
+                with lock:
+                    fit_ms.setdefault(config["lr"], []).append(
+                        (time.perf_counter() - ts) * 1e3)
+                session.report({"loss": loss, "step": n})
+
+        def trainer(**config):
+            return TorchTrainer(train_fn, train_loop_config=config or None,
+                                run_config=RunConfig(storage_path=work),
+                                runtime=InlineRuntime())
+
+        t0 = time.perf_counter()
+        grid, launches = launched_by(lambda: tune.Tuner(
+            trainer(),
+            param_space={"lr": tune.grid_search(list(TUNER_LRS))},
+            tune_config=tune.TuneConfig(max_concurrent_trials=2),
+            runtime=TuneRuntime({})).fit())
+        tuner_wall = time.perf_counter() - t0
+        add_launches(launches)
+        require_kernels("10c", launches, TUNER_STEPS * len(TUNER_LRS))
+        for t in grid.trials:
+            lr = t.config["lr"]
+            require(t.status == "TERMINATED" and len(t.results) == 1,
+                    f"10c lr {lr}: one result ({t.status}, {t.results}, "
+                    f"{t.error})")
+            fit = trainer(lr=lr).fit()
+            ref, _ = direct(lr, TUNER_STEPS)
+            got = dict(t.last_result)
+            got.pop("training_iteration")
+            print(f"10c lr {lr}: the trial's result {got}, TorchTrainer.fit"
+                  f"'s {fit.metrics}, build_train's losses {ref}")
+            require(fit.ok and got == fit.metrics
+                    and got["loss"] == ref[-1],
+                    f"10c lr {lr}: the trial's result equals "
+                    f"TorchTrainer.fit's and build_train's last loss")
+        print(f"10c Tuner(TorchTrainer) on {card}: {len(grid.trials)} "
+              f"trials, 2 at a time, {tuner_wall:.3f} s wall; step ms "
+              f"(the trial's fit, then the direct fit) "
+              + "; ".join(f"{lr}: {[round(x, 3) for x in ms]}"
+                          for lr, ms in fit_ms.items())
+              + f"; launches {launches}")
+        out["tuner"] = dict(wall_s=tuner_wall, step_ms=fit_ms,
+                            launches=launches)
+        del grid
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 10 (the Tune library): K1-K3 launches of its Tune runs "
+          f"{out['launches']}; {time.perf_counter() - t_phase:.3f} s wall; "
+          f"{card}")
+    return out
 
 
 if __name__ == "__main__":

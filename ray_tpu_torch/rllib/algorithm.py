@@ -362,21 +362,25 @@ class Algorithm:
         self.workers.stop()
 
     @classmethod
-    def as_trainable(cls, base_config: AlgorithmConfig, report: Callable,
+    def as_trainable(cls, base_config: AlgorithmConfig,
+                     report: Optional[Callable] = None,
                      stop_iters: int = 10, device=None, runtime=None
                      ) -> Callable:
-        """A function trainable for a Tune layer: ``report`` is its report
-        function (``ray_tpu.tune.report``, say), called with each
-        iteration's result."""
+        """Adapt to the Tune layer: a function trainable that calls
+        ``report`` with each iteration's result; by default the port's
+        ``ray_tpu_torch.tune.report``."""
 
         def trainable(tune_config: Dict):
+            from ..tune import report as tune_report
+
+            emit = report or tune_report
             config = base_config.copy()
             for k, v in tune_config.items():
                 setattr(config, k, v)
             algo = cls(config, device=device, runtime=runtime)
             try:
                 for _ in range(stop_iters):
-                    report(algo.train())
+                    emit(algo.train())
             finally:
                 algo.stop()
 

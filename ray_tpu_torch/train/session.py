@@ -11,10 +11,27 @@ One difference: the port updates tensors in place (its optimizer and
 the tensors of a dict checkpoint to the host at the call
 (``checkpoint.snapshot``); the checkpoint is the state of the step that
 reported it, whenever the executor drains it.
+
+Two more, because the port's actors may share one process (an in-process
+runtime runs every trial and train worker as threads of the caller):
+
+- A session is scoped to the thread that runs under it. ``init_session``
+  installs the process's session, as in the JAX package: on a runtime of
+  worker processes each actor keeps one. An actor body that runs user
+  code (a trial's thread, a train worker's ``run_train_fn``) runs it
+  ``within`` its own session, which that thread sees over the process's,
+  nested: a train worker's session inside a trial's thread ends when its
+  run does, and the trial's is the thread's again.
+- A trial can be asked to stop (``request_stop``): its next ``report``
+  raises ``SystemExit``, which ends the trial's function (the trial's
+  thread takes it for a normal end). A worker process is killed instead;
+  a thread cannot be, so without this a stopped trial in one process
+  would go on training.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -41,8 +58,15 @@ class _Session:
         self.results: List[Dict] = []
         self.checkpoints: List[Optional[Checkpoint]] = []
         self._lock = threading.Lock()
+        self._stop = False
+
+    def request_stop(self) -> None:
+        """Make the next ``report`` end the function that calls it."""
+        self._stop = True
 
     def report(self, metrics: Dict, checkpoint: Optional[Checkpoint] = None):
+        if self._stop:
+            raise SystemExit("the trial was stopped")
         if checkpoint is not None and checkpoint._data is not None:
             checkpoint = Checkpoint.from_dict(snapshot(checkpoint._data))
         with self._lock:
@@ -57,17 +81,34 @@ class _Session:
             return out
 
 
-_session: Optional[_Session] = None
+_session: Optional[_Session] = None  # the process's
+_bound = threading.local()  # .stack: the sessions this thread runs within
 
 
 def init_session(ctx: SessionContext) -> _Session:
+    """A new session, installed as the process's."""
     global _session
     _session = _Session(ctx)
     return _session
 
 
+@contextlib.contextmanager
+def within(session: _Session):
+    """Run the block under ``session`` on this thread, over the session
+    it ran under before (which it runs under again after the block)."""
+    stack = _bound.__dict__.setdefault("stack", [])
+    stack.append(session)
+    try:
+        yield session
+    finally:
+        stack.pop()
+
+
 def get_session() -> Optional[_Session]:
-    return _session
+    """The innermost session this thread runs within, else the
+    process's."""
+    stack = getattr(_bound, "stack", None)
+    return stack[-1] if stack else _session
 
 
 def shutdown_session() -> None:

@@ -247,12 +247,18 @@ class DataParallelTrainer:
         return out
 
     def as_trainable(self):
-        """Adapt for the Tune layer (reference: base_trainer.py:365)."""
+        """Adapt for the Tune layer (reference: base_trainer.py:365): a
+        function trainable whose fit reports its final metrics and
+        checkpoint once, to the session of the trial that calls it."""
         trainer = self
 
         def trainable(config: Dict):
             from . import session as tune_session
 
+            # The trial's session, taken before the fit: on an in-process
+            # runtime the train worker runs in this thread, within a
+            # session of its own.
+            s = tune_session.get_session()
             merged = dict(trainer._config or {})
             merged.update(config)
             t = DataParallelTrainer(
@@ -264,7 +270,6 @@ class DataParallelTrainer:
                 runtime=trainer._runtime,
             )
             result = t.fit()
-            s = tune_session.get_session()
             if s is not None and result.metrics:
                 s.report(result.metrics, result.checkpoint)
             return result.metrics

@@ -16,22 +16,23 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional
 
 from ..core.serialization import install
+from .session import SessionContext, init_session, within
 
 
 class _TrainWorker:
-    """Actor body: hosts the session and executes arbitrary fns."""
+    """Actor body: hosts the session and executes arbitrary fns, each
+    within the worker's session (an in-process runtime may run the worker
+    in the thread of a Tune trial, whose session must stay the trial's)."""
 
     def __init__(self, world_rank: int, world_size: int, env: Optional[dict]):
         import os
 
         install()  # this process sends tensors (reports, checkpoints)
         os.environ.update(env or {})
-        from .session import SessionContext, init_session
-
         self.ctx = SessionContext(world_rank=world_rank,
                                   world_size=world_size,
                                   local_rank=world_rank)
-        init_session(self.ctx)
+        self.session = init_session(self.ctx)
         self._train_result = None
         self._train_error = None
 
@@ -41,7 +42,8 @@ class _TrainWorker:
         return True
 
     def execute(self, fn, *args, **kwargs):
-        return fn(*args, **kwargs)
+        with within(self.session):
+            return fn(*args, **kwargs)
 
     def run_train_fn(self, train_fn, config):
         """Run the user train loop to completion (blocking actor method)."""
@@ -49,10 +51,11 @@ class _TrainWorker:
             import inspect
 
             sig = inspect.signature(train_fn)
-            if len(sig.parameters) >= 1:
-                result = train_fn(config if config is not None else {})
-            else:
-                result = train_fn()
+            with within(self.session):
+                if len(sig.parameters) >= 1:
+                    result = train_fn(config if config is not None else {})
+                else:
+                    result = train_fn()
             self._train_result = result
             return ("ok", result)
         except Exception as e:  # noqa: BLE001
@@ -62,10 +65,7 @@ class _TrainWorker:
             return ("error", f"{e}\n{self._train_error}")
 
     def drain_results(self):
-        from .session import get_session
-
-        s = get_session()
-        return s.drain() if s else []
+        return self.session.drain()
 
     def get_context(self):
         return {

@@ -1,9 +1,10 @@
 """What the port exports against what the JAX package exports: for
-``llm``, ``rllib``, ``train`` and ``parallel``, every name of the JAX
-package's ``__all__`` has a counterpart in the port's ``__all__``, under
-the same name or under one of the renames below, of the same kind (a
-class for a class, a function for a function, a mapping with the same
-keys for a mapping). And no module of the port, nor ``chip_smoke.py`` or
+``llm``, ``rllib``, ``train``, ``parallel``, ``models`` and ``tune``,
+every name of the JAX package's ``__all__`` has a counterpart in the
+port's ``__all__``, under the same name or under one of the renames
+below, of the same kind (a class for a class, a function for a function,
+a module for a module, a mapping with the same keys for a mapping). And
+no module of the port, nor ``chip_smoke.py`` or
 ``serve_ab.py``, imports JAX, ``ml_dtypes`` or anything of the JAX
 package.
 """
@@ -16,7 +17,7 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PACKAGES = ("llm", "rllib", "train", "parallel")
+PACKAGES = ("llm", "rllib", "train", "parallel", "models", "tune")
 # JAX name -> the port's name, where they differ.
 RENAMES = {
     "JaxPolicy": "TorchPolicy",

@@ -164,7 +164,13 @@ def script(engine, p):
             engine.decode_profile())
 
 
-def test_llm_metrics_family_matches_jax():
+def test_llm_metrics_family_matches_jax(monkeypatch):
+    # The JAX family as ``llm_metrics()`` defines it, on a fresh registry:
+    # the process-wide one may already hold a series of the same name that
+    # the runtime's telemetry absorber made from a worker's samples (no
+    # description, no tag keys) in an earlier test of this process.
+    monkeypatch.setattr(jmetrics, "registry", jmetrics.MetricsRegistry())
+    monkeypatch.setattr(jpaged, "_llm_metrics_cache", None)
     got, want = tpaged.llm_metrics(), jpaged.llm_metrics()
     assert got is not None and want is not None
     assert sorted(got) == sorted(want)
