@@ -8,7 +8,18 @@ The LLM engine records its ``llm.*`` spans through whichever of the two
 modules its caller passes (``SlotEngine(observability=)``): in a Serve
 replica of the JAX package's runtime the request's context is bound in
 that runtime's tracing module, and its exporter ships only that module's
-spans. Enable with ``get_tracer().enable()``.
+spans. Enable with ``get_tracer().enable()``; ``span``, ``record_span``
+and ``inject_context`` record only then.
+
+``device_span`` times work on the card: the training step's phases
+(``train.step``, ``train.forward``, ``train.backward``,
+``train.optimizer``) and the attention op (``attn.forward``,
+``attn.backward``). It records whenever the tracer is enabled or a torch
+profiler is recording, so a ``torch.profiler`` trace of any job holds the
+port's phases as host ranges, on the profiler's clock beside the device
+activity they launched, and the ring holds them as spans whose
+``device_ms`` two CUDA events on the stream measure. The spans stay in
+the ring (``Tracer.spans``) for whoever reads them; nothing ships them.
 """
 
 from __future__ import annotations
@@ -21,7 +32,12 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+import torch
+
 _local = threading.local()
+# True while a torch profiler records on this thread (autograd's worker
+# threads inherit it from the thread that runs the backward).
+_profiler_enabled = torch._C._autograd._profiler_enabled
 
 # Async-safe request context: the serve replica's event loop interleaves
 # many requests on ONE thread, so the thread-local span stack cannot
@@ -41,6 +57,11 @@ class Span:
     start_s: float
     end_s: Optional[float] = None
     attributes: Dict[str, Any] = field(default_factory=dict)
+    # A device span's (start, end) CUDA events until ``device_ms`` is read.
+    _events: Optional[tuple] = field(default=None, repr=False,
+                                     compare=False)
+    _device_ms: Optional[float] = field(default=None, repr=False,
+                                        compare=False)
 
     @property
     def duration_ms(self) -> Optional[float]:
@@ -48,9 +69,22 @@ class Span:
             return None
         return (self.end_s - self.start_s) * 1000.0
 
+    @property
+    def device_ms(self) -> Optional[float]:
+        """Milliseconds on the card's clock between the span's two CUDA
+        events, waiting for the later one on first read; None for a span
+        that recorded none (a host span, or a device span off the card)."""
+        if self._events is not None:
+            start, end = self._events
+            end.synchronize()
+            self._device_ms = start.elapsed_time(end)
+            self._events = None
+        return self._device_ms
+
 
 class Tracer:
-    """Process-wide span collector (bounded ring)."""
+    """Process-wide span collector (bounded ring), and the spans open in
+    each trace."""
 
     def __init__(self, max_spans: int = 10_000):
         self.enabled = False
@@ -58,14 +92,10 @@ class Tracer:
         # deque(maxlen): a full ring drops the oldest span in O(1).
         self._spans: deque = deque(maxlen=max_spans)
         self._lock = threading.Lock()
-        # Export plane: a caller that ships spans elsewhere flips
-        # export_enabled and drains finished spans (drain_export);
-        # bounded the same way, so a stalled drain cannot grow the
-        # process.
-        self.export_enabled = False
-        self._export: deque = deque(maxlen=max_spans)
         # Spans the full ring pushed out (oldest first).
         self.dropped = 0
+        # trace id -> its open context-managed spans, in the order opened.
+        self._open: Dict[str, List[Span]] = {}
 
     def enable(self) -> None:
         self.enabled = True
@@ -78,18 +108,27 @@ class Tracer:
             if len(self._spans) == self.max_spans:
                 self.dropped += 1  # deque drops the oldest on append
             self._spans.append(span)
-            if self.export_enabled:
-                if len(self._export) == self.max_spans:
-                    self.dropped += 1
-                self._export.append(span)
 
-    def drain_export(self) -> List[Span]:
-        """Finished spans recorded since the last drain (while
-        ``export_enabled``)."""
+    def opened(self, span: Span) -> None:
         with self._lock:
-            out = list(self._export)
-            self._export.clear()
-        return out
+            self._open.setdefault(span.trace_id, []).append(span)
+
+    def closed(self, span: Span) -> None:
+        with self._lock:
+            spans = self._open[span.trace_id]
+            for i in range(len(spans) - 1, -1, -1):
+                if spans[i] is span:
+                    del spans[i]
+                    break
+            if not spans:
+                del self._open[span.trace_id]
+
+    def innermost(self, trace_id: str) -> Optional[Span]:
+        """The span of ``trace_id`` opened last and still open, on any
+        thread."""
+        with self._lock:
+            spans = self._open.get(trace_id)
+            return spans[-1] if spans else None
 
     def spans(self, name_prefix: str = "") -> List[Span]:
         with self._lock:
@@ -98,7 +137,6 @@ class Tracer:
     def clear(self) -> None:
         with self._lock:
             self._spans.clear()
-            self._export.clear()  # cleared means cleared: nothing ships
 
 
 _tracer = Tracer()
@@ -147,10 +185,8 @@ class _SpanCtx:
         self._attributes = attributes
         self._span: Optional[Span] = None
 
-    def __enter__(self) -> Span:
-        # Parent resolution happens HERE, not in __init__: a caller may
-        # build the span CM before entering remote_context, so resolving
-        # eagerly would miss the adopted context.
+    def _parent(self) -> tuple:
+        """(trace_id, parent_id) of the span being opened."""
         parent = current_span()
         # Same fallback chain as inject_context: thread-local remote
         # ctx (worker executing a task), then the asyncio request ctx
@@ -160,11 +196,16 @@ class _SpanCtx:
         remote_ctx = (getattr(_local, "remote_context", None)
                       or _request_ctx.get())
         if parent is not None:
-            trace_id, parent_id = parent.trace_id, parent.span_id
-        elif remote_ctx is not None:
-            trace_id, parent_id = remote_ctx
-        else:
-            trace_id, parent_id = os.urandom(16).hex(), None
+            return parent.trace_id, parent.span_id
+        if remote_ctx is not None:
+            return tuple(remote_ctx)
+        return os.urandom(16).hex(), None
+
+    def __enter__(self) -> Span:
+        # Parent resolution happens HERE, not in __init__: a caller may
+        # build the span CM before entering remote_context, so resolving
+        # eagerly would miss the adopted context.
+        trace_id, parent_id = self._parent()
         s = self._span = Span(
             name=self._name, span_id=os.urandom(8).hex(),
             parent_id=parent_id, trace_id=trace_id, start_s=time.time(),
@@ -173,12 +214,14 @@ class _SpanCtx:
         if stack is None:
             stack = _local.stack = []
         stack.append(s)
+        _tracer.opened(s)
         return s
 
     def __exit__(self, *exc):
         s = self._span
         s.end_s = time.time()
         _local.stack.pop()
+        _tracer.closed(s)
         _tracer.record(s)
         return False
 
@@ -189,6 +232,73 @@ def span(name: str, **attributes):
     if not _tracer.enabled:
         return _NULL_SPAN
     return _SpanCtx(name, attributes)
+
+
+class _DeviceSpanCtx(_SpanCtx):
+    """A span that is also a profiler range and, on a card, two timing
+    events on the current stream."""
+
+    __slots__ = ("_device", "_trace", "_range", "_start")
+
+    def __init__(self, name: str, device, trace: Optional[str]):
+        super().__init__(name, {})
+        self._device = device
+        self._trace = trace
+        self._start = None
+
+    def _parent(self) -> tuple:
+        if self._trace is None:
+            return super()._parent()
+        # Work that runs on another thread than the one that opened the
+        # trace (autograd's CUDA worker runs the backward) joins the
+        # trace's innermost open span.
+        parent = current_span()
+        if parent is None or parent.trace_id != self._trace:
+            parent = _tracer.innermost(self._trace)
+        return self._trace, None if parent is None else parent.span_id
+
+    def __enter__(self) -> Span:
+        s = super().__enter__()
+        self._range = torch.autograd.profiler.record_function(self._name)
+        self._range.__enter__()
+        self._start = _event(self._device)
+        return s
+
+    def __exit__(self, *exc):
+        if self._start is not None:
+            self._span._events = (self._start, _event(self._device))
+        self._range.__exit__(*exc)
+        return super().__exit__(*exc)
+
+
+def _event(device):
+    """A timing CUDA event recorded on ``device``'s current stream; None
+    off the card and while the stream is being captured into a graph."""
+    if device is None or device.type != "cuda" \
+            or torch.cuda.is_current_stream_capturing():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def device_span(name: str, where=None, trace: Optional[str] = None):
+    """A span around work launched on a device, as a context manager that
+    yields the ``Span`` (add attributes to it) or None when inactive.
+
+    Active while the tracer is enabled or a torch profiler is recording.
+    Then it nests as :func:`span` does, opens a ``record_function`` range
+    named ``name`` and, where ``where`` (a tensor or a device) is on a card,
+    records a timing event on its current stream at entry and at exit
+    (``Span.device_ms``); nothing waits for them. ``trace`` (a trace id
+    captured where the work was launched) joins a span opened on another
+    thread to that trace, under its innermost open span. Inactive, it
+    returns the shared no-op context and creates nothing."""
+    if not (_tracer.enabled or _profiler_enabled()):
+        return _NULL_SPAN
+    if isinstance(where, torch.Tensor):
+        where = where.device
+    return _DeviceSpanCtx(name, where, trace)
 
 
 # -- context propagation ------------------------------------------------------

@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..observability import tracing
 from . import _build
 
 _NEG_INF = -1e30
@@ -323,23 +324,36 @@ def kernels_for(dtype: torch.dtype, head_dim: int):
 class _Flash(torch.autograd.Function):
     """Counterpart of ``_flash`` with ``_flash_fwd_rule``/``_flash_bwd_rule``:
     saves q, k, v, o and lse; the backward computes delta = rowsum(dO o)
-    in fp32 and runs the dk/dv and dq kernels of ``kernels_for``."""
+    in fp32 and runs the dk/dv and dq kernels of ``kernels_for``.
+
+    Each call is a device span (``attn.forward``, ``attn.backward``, with
+    the call's q shape). The backward joins the forward's trace by the id
+    the forward keeps: on a card it runs on autograd's worker thread."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
-        fwd, ctx.dkdv, ctx.dq = kernels_for(q.dtype, q.shape[-1])
-        o, lse = fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        with tracing.device_span("attn.forward", q) as span:
+            ctx.trace = None
+            if span is not None:
+                span.attributes["shape"] = tuple(q.shape)
+                ctx.trace = span.trace_id
+            fwd, ctx.dkdv, ctx.dq = kernels_for(q.dtype, q.shape[-1])
+            o, lse = fwd(q, k, v, causal, scale)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.causal, ctx.scale = causal, scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        delta = (do.float() * o.float()).sum(dim=-1)
-        dk, dv = ctx.dkdv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
-        dq = ctx.dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        with tracing.device_span("attn.backward", do, ctx.trace) as span:
+            q, k, v, o, lse = ctx.saved_tensors
+            if span is not None:
+                span.attributes["shape"] = tuple(q.shape)
+            do = do.contiguous()
+            delta = (do.float() * o.float()).sum(dim=-1)
+            dk, dv = ctx.dkdv(q, k, v, do, lse, delta, ctx.causal,
+                              ctx.scale)
+            dq = ctx.dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 
 

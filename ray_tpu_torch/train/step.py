@@ -21,6 +21,15 @@ pruned rules, each rank passes the whole batch and keeps its
 ("dp", "fsdp") share, and the step runs the model's loss under the mesh
 (``sharding.use_mesh``). Both builders share the optimizer's set-up and
 update (``_init_state``, ``_apply_updates``).
+
+Each step of either is one trace of device spans
+(``observability.tracing.device_span``), recorded while the tracer is
+enabled or a torch profiler records: ``train.step`` (attributes ``step``,
+``tokens`` and, on a card, the allocator's ``reserved_bytes`` at its end)
+over ``train.forward`` (the loss), ``train.backward`` (the backward with
+any remat recompute, and on a mesh each gradient brought to its
+parameter's layout) and ``train.optimizer`` (the global norm and
+``_apply_updates``).
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch
 import torch.nn as nn
 
 from ..device import default_device
+from ..observability import tracing
 from ..parallel.sharding import (Rules, distribute, place,
                                  prune_rules_for_mesh, spec_for, use_mesh)
 from .optim import (GradientTransformation, default_optimizer, global_norm,
@@ -62,20 +72,35 @@ def build_train(init_fn: Callable[[torch.Generator], nn.Module],
         return model, _init_state(model, optimizer, master_fp32), 0
 
     def step(model: nn.Module, opt_state: Any, step: int, batch: Dict):
-        params = list(model.parameters())
-        batch = {k: v.to(dev) for k, v in batch.items()}
-        loss = loss_fn(model, batch)
-        loss.backward()
-        grads = [p.grad for p in params]
-        for p in params:
-            p.grad = None
-        gnorm = global_norm(grads)
-        opt_state = _apply_updates(optimizer, opt_state, params, grads,
-                                   master_fp32)
+        with tracing.device_span("train.step", dev) as root:
+            params = list(model.parameters())
+            batch = {k: v.to(dev) for k, v in batch.items()}
+            with tracing.device_span("train.forward", dev):
+                loss = loss_fn(model, batch)
+            with tracing.device_span("train.backward", dev):
+                loss.backward()
+            grads = [p.grad for p in params]
+            for p in params:
+                p.grad = None
+            with tracing.device_span("train.optimizer", dev):
+                gnorm = global_norm(grads)
+                opt_state = _apply_updates(optimizer, opt_state, params,
+                                           grads, master_fp32)
+            if root is not None:
+                _annotate(root, step, batch, dev)
         return model, opt_state, step + 1, {"loss": loss.detach(),
                                              "grad_norm": gnorm}
 
     return init, step
+
+
+def _annotate(root, step: int, batch: Dict, dev) -> None:
+    """The ``train.step`` span's attributes, at the step's end."""
+    root.attributes["step"] = step
+    if "tokens" in batch:
+        root.attributes["tokens"] = batch["tokens"].numel()
+    if dev.type == "cuda":
+        root.attributes["reserved_bytes"] = torch.cuda.memory_reserved(dev)
 
 
 def _init_state(model: nn.Module, optimizer: GradientTransformation,
@@ -172,20 +197,27 @@ def build_sharded_train(
         return model, _init_state(model, optimizer, master_fp32), 0
 
     def step(model: nn.Module, opt_state: Any, step: int, batch: Dict):
-        params = list(model.parameters())
-        batch = _place_batch(batch, mesh, rules, dev)
-        with use_mesh(mesh):
-            loss = loss_fn(model, batch)
-            loss.backward()
-        # Each gradient in its parameter's layout (a replicated
-        # parameter's gradient may arrive as partial sums).
-        grads = [p.grad.redistribute(p.device_mesh, p.placements)
-                 for p in params]
-        for p in params:
-            p.grad = None
-        gnorm = global_norm(grads)
-        opt_state = _apply_updates(optimizer, opt_state, params, grads,
-                                   master_fp32)
+        with tracing.device_span("train.step", dev) as root:
+            params = list(model.parameters())
+            batch = _place_batch(batch, mesh, rules, dev)
+            with tracing.device_span("train.forward", dev), \
+                    use_mesh(mesh):
+                loss = loss_fn(model, batch)
+            with tracing.device_span("train.backward", dev):
+                with use_mesh(mesh):
+                    loss.backward()
+                # Each gradient in its parameter's layout (a replicated
+                # parameter's gradient may arrive as partial sums).
+                grads = [p.grad.redistribute(p.device_mesh, p.placements)
+                         for p in params]
+            for p in params:
+                p.grad = None
+            with tracing.device_span("train.optimizer", dev):
+                gnorm = global_norm(grads)
+                opt_state = _apply_updates(optimizer, opt_state, params,
+                                           grads, master_fp32)
+            if root is not None:
+                _annotate(root, step, batch, dev)
         return model, opt_state, step + 1, {"loss": _whole(loss.detach()),
                                              "grad_norm": _whole(gnorm)}
 

@@ -179,6 +179,32 @@ def case_sharded_train(rank, world, mesh, cfg, params, tokens, rules=None,
     return out
 
 
+def case_step_spans(rank, world, cfg, tokens):
+    """One step of ``build_sharded_train`` on ``MeshSpec(dp=world)`` under
+    a CPU profiler, the tracer disabled: each span's (name, id, parent id,
+    trace id) and the names of the profiler's host events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.observability import tracing
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.train.optim import adafactor
+    from ray_tpu_torch.train.step import build_sharded_train
+
+    tcfg = gpt2.GPT2Config(**dict(cfg, dtype=getattr(torch, cfg["dtype"])))
+    dmesh = MeshSpec(dp=world).build("cpu")
+    init, step_fn, rules = build_sharded_train(
+        lambda g: gpt2.GPT2(tcfg), lambda m, b: m.loss_fn(b), dmesh,
+        optimizer=adafactor(1e-3))
+    state = init(0)
+    tracing.get_tracer().clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step_fn(*state, {"tokens": torch.from_numpy(tokens)})
+    return {"spans": [(s.name, s.span_id, s.parent_id, s.trace_id)
+                      for s in tracing.get_tracer().spans()],
+            "ranges": sorted({e.name for e in prof.events()})}
+
+
 def _dtensors(tree):
     """The DTensors of a tree of dicts, lists and tuples."""
     from torch.distributed.tensor import DTensor
