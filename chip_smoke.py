@@ -6,11 +6,11 @@
 Phases; any failure exits non-zero:
 
   1. the card's name and power limit (nvidia-smi);
-  2. builds the six CUDA kernels from ray_tpu_torch/ops/csrc (nvcc, one
+  2. builds the CUDA kernels from ray_tpu_torch/ops/csrc (nvcc, one
      process per source, in parallel): the Hopper kernels K1 flash_fwd, K2
-     flash_bwd_dkdv and K3 flash_bwd_dq (bf16/fp16 at head_dim 64 or 128)
-     and the general kernels K4-K6 (*_general: fp32, or any other head_dim
-     up to 256);
+     flash_bwd_dkdv and K3 flash_bwd_dq (bf16/fp16 at head_dim 64 or 128),
+     the general kernels K4-K6 (*_general: fp32, or any other head_dim
+     up to 256) and the LayerNorm kernels (layer_norm);
   3. holds each kernel against its plain PyTorch version on the card, on
      the same inputs; the kernels run on the whole tensors and are
      compared a chunk of (b, h) slices at a time (near 2 GB of the plain
@@ -42,6 +42,12 @@ Phases; any failure exits non-zero:
      CUDA cores' 67 TFLOP/s; fp16: the tensor cores'), and K5+K6 beside
      SDPA's backward (dq, dk, dv) in the same dtype and the backward's
      bound (5 products);
+  4b. holds the LayerNorm kernels (through autograd) against the plain
+     LayerNorm at the benchmark cells' shapes, [16384,1600] and
+     [65536,1024] bf16, then times them forward and backward beside their
+     bound (bytes over the data sheet's bandwidth), the plain composite
+     and F.layer_norm (never used by the port); the training phases of 5
+     count the LayerNorm launches a step and require them;
   5. checks a tiny GPT-2 training step through the kernels against the
      same step through the plain attention, then trains gpt2-124m (bf16,
      fp32 master, adamw_lowmem, batch 8, seq 1024) for 2 + 5 steps with
@@ -310,6 +316,7 @@ TOL_VS_PLAIN = 1e-2      # kernel vs its plain version, same bf16 inputs
 TOL_VS_FP32 = 2e-2       # kernel vs fp32 autograd of the plain attention
 TOL_LSE = 1e-3           # absolute, fp32 lse (natural log units)
 TOL_VS_PLAIN_FP32 = 1e-5  # general kernels on fp32 inputs: sum order only
+TOL_NORM = 2 ** -7       # LayerNorm kernels vs plain: one bf16 rounding
 TOL_E2E_LOSS = 1e-2      # tiny GPT-2: kernels vs plain attention, relative
 TOL_E2E_GRAD = 5e-2      # same, per-parameter gradient, relative to max
 # llama-1b serving checks, as the largest |logit difference| over the
@@ -386,6 +393,11 @@ def ptxas_report(log):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
+            if "4norm" in name:  # rtt::norm (LayerNorm): its mangled name
+                inst = name
+                out[inst] = dict(registers=None, smem_static=0,
+                                 spill_stores=0, spill_loads=0)
+                continue
             # Hopper kernels: sm90::Bf16/Fp16 and D; general kernels:
             # float/__nv_bfloat16/__half and DL = ceil(D / 32).
             if "Bf16" in name or "bfloat16" in name:
@@ -481,6 +493,7 @@ def main(argv):
     from ray_tpu_torch.models.common import param_count
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.ops import norm
     from ray_tpu_torch.train.optim import (adamw_lowmem,
                                            warmup_cosine_decay_schedule)
     from ray_tpu_torch.train.step import build_train
@@ -670,6 +683,11 @@ def main(argv):
             torch, A, gen, (4, 16, 1024, 80), torch.float16)}
     print(f"phase 4 (timings): {time.perf_counter() - t_timing:.3f} s wall")
 
+    # -- 4b. the LayerNorm kernels at the benchmark cells' shapes ------------
+    t0 = time.perf_counter()
+    norm_time = norm_phase(torch, gen)
+    print(f"phase 4b (LayerNorm): {time.perf_counter() - t0:.3f} s wall")
+
     # -- 5a. tiny GPT-2 step: kernels against the plain attention ------------
     tiny = dict(vocab_size=512, max_seq=128, num_layers=2, num_heads=2,
                 d_model=128)
@@ -718,10 +736,12 @@ def main(argv):
     torch.cuda.reset_peak_memory_stats()
 
     A.reset_launch_counts()
+    norm.reset_counts()
     (model, opt_state, step), losses, norms, elapsed = run_steps(
         torch, step_fn, (model, opt_state, step), data, warm, steps)
     launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
     general = general_launches(A)
+    norm_124m = layer_norm_calls("gpt2-124m", warm + steps, cfg.num_layers)
     print(f"losses {losses}")
     print(f"grad norms {norms}")
     require(all(math.isfinite(x) for x in losses + norms), "finite losses")
@@ -913,6 +933,33 @@ def main(argv):
         k["launches_telemetry_9a"] = tele["launches"][name]
         k["launches_external_9b"] = ext["launches"][name]
         k["launches_tune_10"] = tn["launches"][name]
+    # LayerNorm: the launches a step as the training phases counted them;
+    # gpt2-1.5b (5d) and gpt2-355m at S 16384 (5e) have the benchmark
+    # cells' layers and remat policy, so their counts are the cells'.
+    ln = dict(name="layer_norm", route="cuda",
+              source="ray_tpu_torch/ops/csrc/layer_norm.cu",
+              replaces="none: XLA fuses ray_tpu/models/common.py layer_norm",
+              ptxas=ptxas["layer_norm"], at=norm_time,
+              launches_gpt2_124m_per_step=norm_124m)
+    ln["launches_gpt2_774m_per_step"] = {
+        policy: n["layer_norm"] for policy, n in launches_774m.items()}
+    ln["launches_gpt2_1.5b_per_step"] = train_15b["layer_norm_calls"]
+    ln["launches_long_context_per_step"] = {
+        seq: r["layer_norm_calls"] for seq, r in long_ctx.items()}
+    ln["launches_vit_b16_per_step"] = train_vit["layer_norm_calls"]
+    ln["launches_mesh_of_one_per_step"] = {
+        name: r["layer_norm_calls"] for name, r in par.items()}
+    kernels.append(ln)
+    for cell, calls in (
+            ("gpt2-1.5b.s1024-b16", train_15b["layer_norm_calls"]),
+            ("gpt2-355m.s16384-b4", long_ctx[16384]["layer_norm_calls"])):
+        at = norm_time[cell]
+        ms, plain = (sum(calls[way] * at[way][key]
+                         for way in ("forward", "backward"))
+                     for key in ("ms", "plain_ms"))
+        print(f"layer_norm a step of {cell} at its shape: "
+              f"{calls['forward']} forward and {calls['backward']} backward "
+              f"launches (counted): kernel {ms:.2f} ms, plain {plain:.2f} ms")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
@@ -931,6 +978,7 @@ def gpt2_774m_phase(torch, A, profile_root=None):
 
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.models.common import param_count
+    from ray_tpu_torch.ops import norm
     from ray_tpu_torch.train.optim import (adamw_lowmem,
                                            warmup_cosine_decay_schedule)
     from ray_tpu_torch.train.step import build_train
@@ -962,6 +1010,7 @@ def gpt2_774m_phase(torch, A, profile_root=None):
             t_init = time.perf_counter() - t0
             torch.cuda.reset_peak_memory_stats()
             A.reset_launch_counts()
+            norm.reset_counts()
             (model, opt_state, step), losses[policy], _, elapsed = run_steps(
                 torch, step_fn, (model, opt_state, step), data, warm, steps)
         except torch.cuda.OutOfMemoryError:
@@ -973,6 +1022,9 @@ def gpt2_774m_phase(torch, A, profile_root=None):
         n = warm + steps
         launches[policy] = {f.__name__: f.launches / n
                             for f in A.KERNEL_WRAPPERS}
+        launches[policy]["layer_norm"] = layer_norm_calls(
+            f"gpt2-774m remat {policy}", n, cfg.num_layers,
+            recompute=policy == "mem2")
         require(general_launches(A) == 0,
                 f"gpt2-774m {policy}: no general kernel")
         peaks[policy] = torch.cuda.max_memory_allocated() / 1e9
@@ -995,7 +1047,8 @@ def gpt2_774m_phase(torch, A, profile_root=None):
         require(abs(losses[policy][0] - math.log(cfg.vocab_size)) < 1.0,
                 f"gpt2-774m {policy}: first loss {losses[policy][0]} near "
                 f"ln(vocab) = {math.log(cfg.vocab_size):.3f}")
-        require(all(v == cfg.num_layers for v in launches[policy].values()),
+        require(all(launches[policy][f.__name__] == cfg.num_layers
+                    for f in A.KERNEL_WRAPPERS),
                 f"gpt2-774m {policy}: one launch of each kernel per layer "
                 "per step")
         if profile_root is not None:
@@ -2688,6 +2741,100 @@ def long_s_timings(torch, A, gen):
     return out
 
 
+# The benchmark cells' LayerNorm shapes, [B S, d] bf16.
+NORM_SHAPES = (("gpt2-1.5b.s1024-b16", 16 * 1024, 1600),
+               ("gpt2-355m.s16384-b4", 4 * 16384, 1024))
+
+
+def norm_phase(torch, gen):
+    """Phase 4b: the LayerNorm kernels at each cell's shape against the
+    plain version (through autograd; one rounding of the output's type
+    apart at most, TOL_NORM), then timed forward and backward beside
+    their bound (bytes read once and written once over the data sheet's
+    bandwidth), the plain composite and F.layer_norm (``library_ms``,
+    never called by the port)."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import norm
+
+    dev = gen.device
+    out = {}
+    for cell, rows, d in NORM_SHAPES:
+        x, dy = (torch.randn((rows, d), generator=gen, device=dev,
+                             dtype=torch.bfloat16) for _ in range(2))
+        scale, bias = (torch.randn(d, generator=gen, device=dev,
+                                   dtype=torch.bfloat16) for _ in range(2))
+        xs = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        refs = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        lib = [t.clone().requires_grad_() for t in (x, scale, bias)]
+        y = norm.layer_norm(*xs)
+        ry = norm.layer_norm_reference(*refs)
+        ly = F.layer_norm(lib[0], (d,), lib[1], lib[2], 1e-5)
+        torch.autograd.backward([y, ry], [dy, dy], retain_graph=True)
+        torch.cuda.synchronize()
+        errs = [rel_err(y, ry)] + [rel_err(a.grad, r.grad)
+                                   for a, r in zip(xs, refs)]
+        print(f"check layer_norm [{rows},{d}] bf16 (y, dx, dscale, dbias) "
+              f"vs plain autograd: rel " + ", ".join(f"{e:.3e}" for e in errs)
+              + f" (tol {TOL_NORM})")
+        require(max(errs) <= TOL_NORM, f"layer_norm [{rows},{d}]")
+        _, mean, rstd = norm.layer_norm_fwd(x, scale, bias)
+        elem, stat, par = rows * d * 2, rows * 4, d * 2
+        rows_out = {
+            "forward": dict(
+                fn=lambda: norm.layer_norm_fwd(x, scale, bias),
+                plain=lambda: norm.layer_norm_reference(x, scale, bias),
+                library=lambda: F.layer_norm(x, (d,), scale, bias, 1e-5),
+                nbytes=2 * elem + 2 * stat + 2 * par),
+            "backward": dict(
+                fn=lambda: norm.layer_norm_bwd(dy, x, scale, mean, rstd),
+                plain=lambda: torch.autograd.grad(ry, refs, dy,
+                                                  retain_graph=True),
+                library=lambda: torch.autograd.grad(ly, lib, dy,
+                                                    retain_graph=True),
+                nbytes=3 * elem + 2 * stat + 3 * par),
+        }
+        out[cell] = {}
+        for way, r in rows_out.items():
+            ms = time_ms(torch, r["fn"])
+            plain_ms = time_ms(torch, r["plain"], warmup=1, reps=5)
+            lib_ms = time_ms(torch, r["library"])
+            b_ms, _ = bound(0, r["nbytes"])
+            out[cell][way] = dict(
+                shape=[rows, d], ms=ms, bound_ms=b_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, max_abs_err=max(errs))
+            print(f"time layer_norm {way} [{rows},{d}] bf16: {ms:.4f} ms; "
+                  f"bound {b_ms:.4f} ms by bytes ({r['nbytes'] / 1e6:.1f} "
+                  f"MB, {100 * b_ms / ms:.1f}% of bound); plain "
+                  f"{plain_ms:.4f} ms; library {lib_ms:.4f} ms")
+        del x, dy, scale, bias, xs, refs, lib, y, ry, ly, mean, rstd
+        torch.cuda.empty_cache()
+    return out
+
+
+def layer_norm_calls(label, n, layers=None, recompute=False):
+    """The LayerNorm calls a step over the ``n`` steps since
+    ``norm.reset_counts()``: the forward and backward kernels' launches and
+    the calls that took the plain version. Given ``layers``, requires what
+    a model of plain tensors makes: ln1 and ln2 a layer and lnf, each once
+    forward (twice for ln1 and ln2 where ``recompute``) and once backward,
+    all through the kernels."""
+    from ray_tpu_torch.ops import norm
+
+    got = dict(forward=norm.layer_norm_fwd.launches / n,
+               backward=norm.layer_norm_bwd.launches / n,
+               plain=norm.layer_norm.plain_calls / n)
+    expect = None if layers is None else dict(
+        forward=(4 if recompute else 2) * layers + 1,
+        backward=2 * layers + 1, plain=0)
+    print(f"{label}: LayerNorm calls a step {got}"
+          + ("" if expect is None else f" (expect {expect})"))
+    if expect is not None:
+        require(got == expect, f"{label}: LayerNorm through the kernels, "
+                               f"{expect} a step")
+    return got
+
+
 def c3_phase(torch, A, dev):
     """Fault C3 on the card: llama-tiny (fp32, head_dim 16) loss and
     gradients on CUDA against the CPU. The Hopper kernels take neither, so
@@ -2758,11 +2905,12 @@ def adafactor_gpt2(torch, A, name, seq, batch, warm, steps,
     (``cast_floating``), remat "mem2", ``adafactor(1e-4)`` without the
     fp32 master, bench.py's tokens; ``warm`` steps, then ``steps`` timed
     on the host clock ending in a fetch of the loss. Returns the figures
-    and the launches of each kernel a step."""
+    and the launches of each kernel a step, LayerNorm's too."""
     import numpy as np
 
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.models.common import cast_floating, param_count
+    from ray_tpu_torch.ops import norm
     from ray_tpu_torch.train.optim import adafactor
     from ray_tpu_torch.train.step import build_train
 
@@ -2788,16 +2936,18 @@ def adafactor_gpt2(torch, A, name, seq, batch, warm, steps,
     state_b = tensor_bytes(opt_state)
     torch.cuda.reset_peak_memory_stats()
     A.reset_launch_counts()
+    norm.reset_counts()
     (model, opt_state, step), losses, _, elapsed = run_steps(
         torch, step_fn, (model, opt_state, step), data, warm, steps)
     n = warm + steps
     launches = {f.__name__: f.launches / n for f in A.KERNEL_WRAPPERS}
     general = general_launches(A)
+    label = f"{name} seq {seq} batch {batch}"
+    norm_calls = layer_norm_calls(label, n, cfg.num_layers, recompute=True)
     peak = torch.cuda.max_memory_allocated() / 1e9
     step_ms = elapsed / steps * 1e3
     tok_s = batch * seq * steps / elapsed
     mfu = tok_s * gpt2.flops_per_token(cfg, seq) / PEAK_BF16_FLOPS
-    label = f"{name} seq {seq} batch {batch}"
     print(f"{label}: {n_params} parameters ({n_params * 2 / 1e9:.3f} GB "
           f"bf16), mem2, adafactor(1e-4), no master; init {t_init:.3f} s; "
           f"adafactor state {state_b} bytes ({state_b / 1e6:.3f} MB) against "
@@ -2824,7 +2974,7 @@ def adafactor_gpt2(torch, A, name, seq, batch, warm, steps,
     print(f"{label} phase: {time.perf_counter() - t_phase:.3f} s wall")
     return dict(step_ms=step_ms, tokens_s=tok_s, mfu_pct=100 * mfu,
                 peak_gb=peak, losses=losses, state_bytes=state_b,
-                launches=launches)
+                launches=launches, layer_norm_calls=norm_calls)
 
 
 def profile_optimizer(torch, model, opt_state, opt, data):
@@ -2863,6 +3013,7 @@ def vit_phase(torch, A, profile_root=None):
 
     from ray_tpu_torch.models import vit
     from ray_tpu_torch.models.common import param_count
+    from ray_tpu_torch.ops import norm
     from ray_tpu_torch.train.optim import default_optimizer
     from ray_tpu_torch.train.step import build_train
 
@@ -2883,11 +3034,14 @@ def vit_phase(torch, A, profile_root=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     A.reset_launch_counts()
+    norm.reset_counts()
     (model, opt_state, step), losses, _, elapsed = run_steps(
         torch, step_fn, (model, opt_state, step), data, warm, steps)
     n = warm + steps
     launches = {f.__name__: f.launches / n for f in A.KERNEL_WRAPPERS}
     general = general_launches(A)
+    norm_calls = layer_norm_calls("vit-b16", n, cfg.num_layers,
+                                  recompute=cfg.remat)
     peak = torch.cuda.max_memory_allocated() / 1e9
     img_s = batch * steps / elapsed
     fpi = vit.flops_per_image(cfg, n_params)
@@ -2919,7 +3073,8 @@ def vit_phase(torch, A, profile_root=None):
     torch.cuda.empty_cache()
     print(f"vit-b16 phase: {time.perf_counter() - t_phase:.3f} s wall")
     return dict(step_ms=elapsed / steps * 1e3, images_s=img_s,
-                mfu_pct=100 * mfu, peak_gb=peak, launches=launches)
+                mfu_pct=100 * mfu, peak_gb=peak, launches=launches,
+                layer_norm_calls=norm_calls)
 
 
 def resnet_phase(torch):
@@ -3028,6 +3183,7 @@ def mesh_phases(torch, A, sched, data, ref, card="cuda", profile_root=None):
     import torch.distributed as dist
 
     from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import norm
     from ray_tpu_torch.parallel.bootstrap import Bootstrap, InMemoryKV
     from ray_tpu_torch.parallel.mesh import MeshSpec
     from ray_tpu_torch.parallel.sharding import prune_rules_for_mesh
@@ -3060,14 +3216,19 @@ def mesh_phases(torch, A, sched, data, ref, card="cuda", profile_root=None):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             A.reset_launch_counts()
+            norm.reset_counts()
             state, losses, norms, elapsed = run_steps(
                 torch, step_fn, state, data, 2, 5)
             launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
             general = general_launches(A)
+            # DTensors take the plain version, the MoE layer's local
+            # tensors inside its smap region the kernels: recorded only.
+            norm_calls = layer_norm_calls(name, 7)
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             rec = mesh_record(torch, gpt2, cfg, name, losses, norms, elapsed,
                               launches, general, peak_gb, n_params,
                               dict(ref, moe=out.get("moe")))
+            rec["layer_norm_calls"] = norm_calls
             if name == "moe":
                 if profile_root:
                     rec["profile"] = profile_moe_step(

@@ -13,6 +13,10 @@ from typing import Mapping, Optional, Tuple
 import torch
 import torch.nn as nn
 
+# LayerNorm in fp32, returned in x's dtype: the CUDA kernels for tensors on
+# a card, the plain composite on the CPU and for DTensors.
+from ..ops.norm import layer_norm  # noqa: F401
+
 
 def truncated_normal(shape, generator: Optional[torch.Generator] = None,
                      stddev: float = 0.02, dtype=torch.float32,
@@ -44,15 +48,6 @@ def cast_floating(tree, dtype: torch.dtype):
     if isinstance(tree, (list, tuple)):
         return type(tree)(cast_floating(v, dtype) for v in tree)
     return tree.to(dtype) if tree.is_floating_point() else tree
-
-
-def layer_norm(x, scale, bias, eps: float = 1e-5):
-    """LayerNorm in fp32 (population variance), returned in x's dtype."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
 
 
 def rms_norm(x, scale, eps: float = 1e-6):

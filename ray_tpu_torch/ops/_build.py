@@ -1,11 +1,12 @@
 """Builds the CUDA sources under ``csrc/`` and loads them with ctypes.
 
-Each ``csrc/<name>.cu`` becomes one shared library with a plain C entry
-point of the same name, compiled by ``nvcc`` for ``sm_90a`` into
+Each ``csrc/<name>.cu`` becomes one shared library with plain C entry
+points (those ``load`` is given), compiled by ``nvcc`` for ``sm_90a`` into
 ``ray_tpu_torch/_build/`` on first use. The file name carries a hash of
-the sources and flags, so an edited kernel is rebuilt and an unchanged
-one is loaded as it is. ``build()`` starts one ``nvcc`` per source, all
-at once. A failed build raises: nothing falls back to the plain versions.
+the sources and flags, so an edited kernel is rebuilt and an unchanged one
+is loaded as it is. ``build()`` starts one
+``nvcc`` per source, all at once. A failed build raises: nothing falls
+back to the plain versions.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd_general",
-           "flash_bwd_dkdv_general", "flash_bwd_dq_general")
+           "flash_bwd_dkdv_general", "flash_bwd_dq_general", "layer_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,16 +95,17 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return seconds
 
 
-def load(name: str, argtypes) -> ctypes.CDLL:
+def load(name: str, entries) -> ctypes.CDLL:
     """The built library of kernel ``name``, building it first if needed;
-    its entry point ``name`` gets ``argtypes`` and an int result (the
-    launch's ``cudaError_t``)."""
+    each entry point of ``entries`` ({entry point: argtypes}) gets its
+    argtypes and an int result (the launch's ``cudaError_t``)."""
     lib = _libs.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(_library_path(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib

@@ -163,7 +163,7 @@ def _check(q, k, v, do=None, general: bool = False) -> None:
 def _kernel(name: str, argtypes, *tensors):
     """The C entry point of kernel ``name`` (built on first use) after the
     operands are checked."""
-    fn = getattr(_build.load(name, argtypes), name)
+    fn = getattr(_build.load(name, {name: argtypes}), name)
     _check(*tensors, general=name.endswith("_general"))
     return fn
 

@@ -343,26 +343,36 @@ def test_build_keeps_nvcc_log_beside_library(monkeypatch, tmp_path):
 def test_every_kernel_is_built_on_the_hopper_header():
     """Each Hopper kernel source includes csrc/hopper.cuh and runs its
     products on wgmma; each general one (fp32 or head dims other than 64
-    and 128) includes csrc/general.cuh; no mma.sync is left anywhere, and
-    those are the only headers."""
+    and 128) includes csrc/general.cuh; the LayerNorm source (its own
+    group: no products) includes neither; no mma.sync is left anywhere,
+    and those are the only headers."""
     hopper = {f.__name__ for f in tattn.KERNEL_WRAPPERS}
     general = {f.__name__ for f in tattn.GENERAL_WRAPPERS}
-    assert {p.stem for p in _build.CSRC.glob("*.cu")} == hopper | general
+    norm = {"layer_norm"}
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == \
+        hopper | general | norm
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
         assert "mma.sync" not in text, src.name
         if src.stem in hopper:
             assert '#include "hopper.cuh"' in text, src.name
             assert "wgmma_" in text, src.name
-        else:
+        elif src.stem in general:
             assert '#include "general.cuh"' in text, src.name
+        else:
+            assert ".cuh" not in text and "wgmma" not in text, src.name
+            for entry in ("layer_norm_fwd", "layer_norm_bwd"):
+                assert f'extern "C" int {entry}(' in text, entry
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == [
         "general.cuh", "hopper.cuh"]
 
 
 def test_build_names_every_kernel_source():
+    """``build()`` compiles every source, the attention kernels and the
+    LayerNorm kernels alike, each into its own library."""
     assert set(_build.KERNELS) == {
         p.stem for p in _build.CSRC.glob("*.cu")}
+    assert "layer_norm" in _build.KERNELS
     paths = {_build._library_path(n) for n in _build.KERNELS}
     assert len(paths) == len(_build.KERNELS)
     assert all(p.parent == _build.BUILD_DIR for p in paths)

@@ -85,6 +85,119 @@ def test_cuda_dq_is_deterministic(cuda, d):
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
+# -- the LayerNorm kernels (csrc/layer_norm.cu) --------------------------------
+
+F32, BF16, FP16 = torch.float32, torch.bfloat16, torch.float16
+# The kernels and the plain version both compute in fp32 and round once to
+# the output's type; their fp32 values differ only by the order of the sums
+# (and rsqrt against 1/sqrt), a few fp32 units. So a 16-bit output differs
+# by one unit in its last place at most, 2^-7 of the largest entry in bf16
+# and 2^-10 in fp16, and an fp32 one by far less than 1e-5 of it (dscale
+# and dbias sum up to 65,536 rows, in fp32 both ways).
+LN_TOL = {F32: 1e-5, BF16: 2 ** -7, FP16: 2 ** -10}
+
+
+def _ln_inputs(cuda, rows, d, dtype, pdtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device=cuda)
+    x = (mk(rows, d) * 3 + 1).to(dtype)
+    scale = (1 + 0.5 * mk(d)).to(pdtype)
+    bias = (0.5 * mk(d)).to(pdtype)
+    return x, scale, bias, mk(rows, d).to(dtype)
+
+
+def _ln_rel(got, ref) -> float:
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(16384, 1600), (65536, 1024), (4096, 384),
+                                    (4096, 768), (4096, 1280), (1000, 1001)])
+@pytest.mark.parametrize("dtype,pdtype", [(BF16, BF16), (BF16, F32),
+                                          (FP16, FP16), (FP16, F32),
+                                          (F32, F32)])
+def test_cuda_layer_norm_matches_plain(cuda, rows, d, dtype, pdtype):
+    """y, dx, dscale and dbias through ``layer_norm`` (the kernels, by
+    autograd) against the plain version's autograd on the same inputs,
+    within LN_TOL; the two cells' shapes ([16384, 1600], [65536, 1024]),
+    ViT's, gpt2-124m's, gpt2-774m's and MoE's widths, and a d no vector
+    divides. One forward and one backward call: the counts rise by one
+    each and no call takes the plain version."""
+    from ray_tpu_torch.ops import norm
+
+    x, scale, bias, dy = _ln_inputs(cuda, rows, d, dtype, pdtype)
+    xs = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    refs = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    norm.reset_counts()
+    y = norm.layer_norm(*xs)
+    y.backward(dy)
+    ry = norm.layer_norm_reference(*refs)
+    ry.backward(dy)
+    torch.cuda.synchronize()
+    assert norm.counts() == (2, 0)
+    assert (norm.layer_norm_fwd.launches, norm.layer_norm_bwd.launches) == \
+        (1, 1)
+    assert y.dtype == dtype and xs[0].grad.dtype == dtype
+    assert _ln_rel(y, ry) <= LN_TOL[dtype]
+    assert _ln_rel(xs[0].grad, refs[0].grad) <= LN_TOL[dtype]
+    for got, ref in zip(xs[1:], refs[1:]):
+        assert got.grad.dtype == pdtype
+        assert _ln_rel(got.grad, ref.grad) <= LN_TOL[pdtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,dtype", [(16384, 1600, BF16),
+                                          (65536, 1024, BF16),
+                                          (1000, 1001, F32)])
+def test_cuda_layer_norm_backward_is_deterministic(cuda, rows, d, dtype):
+    """The backward sums dscale and dbias in a fixed order, without
+    atomics: two runs on the same inputs give the same bits."""
+    from ray_tpu_torch.ops import norm
+
+    x, scale, bias, dy = _ln_inputs(cuda, rows, d, dtype, dtype, seed=3)
+    _, mean, rstd = norm.layer_norm_fwd(x, scale, bias)
+    first = norm.layer_norm_bwd(dy, x, scale, mean, rstd)
+    second = norm.layer_norm_bwd(dy, x, scale, mean, rstd)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,per_layer", [("none", 4), ("mem2", 6)])
+def test_cuda_gpt2_layer_norms_take_the_kernels(cuda, policy, per_layer):
+    """A GPT-2 step on the card: ln1 and ln2 forward and backward a layer,
+    again forward under mem2's recompute, and lnf; every call through the
+    kernels."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import norm
+
+    cfg = gpt2.GPT2Config(vocab_size=512, max_seq=128, num_layers=3,
+                          num_heads=2, d_model=128, remat_policy=policy)
+    model = gpt2.GPT2(cfg, torch.Generator().manual_seed(0)).to(cuda).to(
+        torch.bfloat16)
+    tokens = torch.randint(0, 512, (2, 129), device=cuda)
+    norm.reset_counts()
+    loss = model.loss_fn({"tokens": tokens})
+    loss.backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert norm.counts() == (per_layer * 3 + 2, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_refuses_what_it_does_not_take(cuda):
+    from ray_tpu_torch.ops import norm
+
+    x, scale, bias, _ = _ln_inputs(cuda, 4, 4097, BF16, BF16)
+    with pytest.raises(ValueError, match="d 1 to 4096"):
+        norm.layer_norm(x, scale, bias)
+    x, scale, bias, _ = _ln_inputs(cuda, 4, 64, BF16, FP16)
+    with pytest.raises(TypeError, match="dtype or fp32"):
+        norm.layer_norm_fwd(x, scale, bias)
+
+
 # -- the serving path (models/llama, llm/) on the card ------------------------
 
 def _tiny_llama(cuda, dtype=torch.bfloat16, max_seq=256):

@@ -15,10 +15,6 @@ skip:
 """
 
 import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,12 +23,9 @@ import torch
 
 from ray_tpu.ops import attention as jattn
 from ray_tpu_torch import device as tdevice
-from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as tattn
+from torch_stub_build import host_library, host_source
 
-STUB = Path(__file__).resolve().parent / "torch_cuda_stub"
-_LAUNCH = re.compile(r"(\w+)<<<(.*?)>>>\((.*?)\);")
-_SMEM = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -42,36 +35,9 @@ def _full_fp32():
         yield
 
 
-def host_source(text: str) -> str:
-    """A kernel source with its launches and dynamic shared memory
-    rewritten for the stub (see torch_cuda_stub/cuda_runtime.h)."""
-    text = _LAUNCH.sub(r"::rtt_stub::launch(\1, \2, \3);", text)
-    return _SMEM.sub(
-        r"\1* \2 = reinterpret_cast<\1*>(::rtt_stub::dynamic_smem());", text)
-
-
-def build_host_library(name: str, out_dir: Path) -> ctypes.CDLL:
-    """csrc/<name>.cu and the csrc headers, rewritten, built by g++ into
-    a shared library in ``out_dir``."""
-    for src in list(_build.CSRC.glob("*.cuh")) + [_build.CSRC / f"{name}.cu"]:
-        (out_dir / src.name).write_text(host_source(src.read_text()))
-    lib = out_dir / f"lib{name}.so"
-    cmd = ["g++", "-std=c++20", "-O1", "-fno-strict-aliasing", "-pthread",
-           "-shared", "-fPIC", "-I", str(STUB), "-x", "c++",
-           str(out_dir / f"{name}.cu"), "-o", str(lib)]
-    done = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    assert done.returncode == 0, done.stderr[-4000:]
-    return ctypes.CDLL(str(lib))
-
-
 def _host_kernel(tmp_path_factory, name, argtypes):
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to build the kernel source for the CPU")
-    fn = getattr(build_host_library(name, tmp_path_factory.mktemp(name)),
-                 name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    return getattr(host_library(tmp_path_factory, name, {name: argtypes}),
+                   name)
 
 
 @pytest.fixture(scope="module")

@@ -306,7 +306,8 @@ def cuda():
 def test_device_ms_on_the_card_tiles_the_step(cuda):
     """On the card every span has ``device_ms``; the phases lie inside the
     step on the device's clock, and the step holds the allocator's
-    reserved bytes."""
+    reserved bytes and its LayerNorm calls: ln1 and ln2 a layer and lnf,
+    forward and backward, all through the kernels."""
     state, step = _trainer(cuda, torch.bfloat16, heads=1)  # K1-K3
     for _ in range(2):  # the kernels built and warm
         *state, _ = step(*state, {"tokens": _tokens(device=cuda)})
@@ -315,6 +316,8 @@ def test_device_ms_on_the_card_tiles_the_step(cuda):
     root = named["train.step"][0]
     assert root.attributes["reserved_bytes"] == \
         torch.cuda.memory_reserved(cuda)
+    assert root.attributes["norm_kernel_calls"] == 2 * (2 * LAYERS + 1)
+    assert root.attributes["norm_plain_calls"] == 0
     phases = sum(named[n][0].device_ms for n in PHASES)
     assert 0 < phases <= root.device_ms
     for name in ("attn.forward", "attn.backward"):

@@ -1,7 +1,9 @@
 // A CPU stand-in for the parts of the CUDA runtime that the general flash
-// kernels (ray_tpu_torch/ops/csrc/*_general.cu, general.cuh) use, so that
-// g++ can build their sources into a host library whose C entry points run
-// the kernels' arithmetic on CPU tensors (tests/test_torch_general_stub.py).
+// kernels (ray_tpu_torch/ops/csrc/*_general.cu, general.cuh) and the
+// LayerNorm kernels (layer_norm.cu) use, so that g++ can build their
+// sources into a host library whose C entry points run the kernels'
+// arithmetic on CPU tensors (tests/test_torch_general_stub.py,
+// tests/test_torch_norm.py, through tests/torch_stub_build.py).
 //
 // A launch runs its blocks one after another; a block is one std::thread
 // for each CUDA thread. __syncthreads is a barrier over the block, and
