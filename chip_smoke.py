@@ -29,6 +29,19 @@ Phases; any failure exits non-zero:
      at D 1, bf16 at D 32, fp16 at D 80, [8,12,1024,64] fp32,
      [1,2,8192,64] fp32 (bench_ring_parity's shape) and [4,16,1024,80]
      fp16 (fp32 within 1e-5, 16-bit within phase 3's tolerance; ~5 s);
+  3d. Granite 4.0-H's attention path (``granite_phase``): K1-K3 through
+     ``ops.attention.attention`` at [8,32,8192,128] bf16 causal with the
+     score scale 0.0078125 (``attention_multiplier``, not 1/sqrt(128)),
+     the 8 KV heads expanded onto 32 by ``expand_kv_heads``, held to
+     ``mha_reference_with_lse`` (o within phase 3's kernel tolerance, lse
+     within its lse tolerance) and to its fp32 autograd (dq, and dk, dv
+     through the expansion, within phase 3's autograd tolerance), the
+     reference a batch row and a KV head's four query heads at a time;
+     then one training step of the 10-layer cut of granite-4.0-h-small
+     (layers 0-9, experts 0-7 of 72 held; bf16, adafactor(1e-4), batch 8
+     x S 8192) with the launch counters reset just before: a finite first
+     loss within 1 of ln(vocab), K1 twice (the forward and the layer's
+     recompute) and K2, K3 once an attention layer, no general kernel;
   4. after a second of warm-up, times each kernel at the GPT-2 shape
      (device time per call, from torch.profiler) beside its plain
      version, its bound from the data-sheet peaks, and
@@ -600,6 +613,7 @@ def main(argv):
         gen, general=True)
     print(f"phase 3c (general kernels): {time.perf_counter() - t0:.3f} s "
           "wall")
+    granite = granite_phase(torch, A, gen)
 
     # -- 4. timings at the GPT-2 shape --------------------------------------
     t_timing = time.perf_counter()
@@ -890,6 +904,8 @@ def main(argv):
         k["launches_long_context_per_step"] = {
             seq: r["launches"][name] for seq, r in long_ctx.items()}
         k["launches_vit_b16_per_step"] = train_vit["launches"][name]
+        k["launches_granite_per_step"] = granite["launches"][name]
+        k["rel_err_granite_shape"] = granite["errs"][name]
         # At bench_long_context's longest point, and the largest errors of
         # the long-S (S 4096-16384) and ViT-shape checks.
         k["long_s"] = dict(long_s[name], max_abs_err=long_errs[name],
@@ -2877,6 +2893,125 @@ def c3_phase(torch, A, dev):
             and all(n == cfg.num_layers for n in launches["card"].values()),
             "general kernel launches of llama-tiny")
     return launches["card"]
+
+
+def granite_phase(torch, A, gen):
+    """Phase 3d: K1-K3 on Granite 4.0-H's attention at the benchmark
+    cell's shape and scale against the plain attention and its autograd,
+    then one training step of the 10-layer cut with its launches counted.
+    Returns the launches of each kernel in that step and each kernel's
+    relative error at the shape (K1: o; K2: the larger of dk's and dv's;
+    K3: dq)."""
+    from ray_tpu_torch.models import granite_hybrid as gh
+    from ray_tpu_torch.models.common import expand_kv_heads, param_count
+    from ray_tpu_torch.train.optim import adafactor
+    from ray_tpu_torch.train.step import build_train
+
+    t_phase = time.perf_counter()
+    dev = gen.device
+    cfg = gh.GraniteHybridConfig(
+        num_hidden_layers=10, layer_types=gh.PUBLISHED_LAYER_TYPES[:10],
+        experts_held=(0, 8), dtype=torch.bfloat16)
+    batch, seq = 8, 8192
+    heads, kv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.head_dim)
+    group, sc = heads // kv, cfg.attention_multiplier
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    q = rand(batch, heads, seq, hd).requires_grad_()
+    k, v = (rand(batch, kv, seq, hd).requires_grad_() for _ in range(2))
+    do = rand(batch, heads, seq, hd)
+    A.reset_launch_counts()
+    ek, ev = expand_kv_heads(k, v, heads, group)
+    o = A.attention(q, ek, ev, causal=True, scale=sc)
+    o.backward(do)
+    launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
+    require(all(n == 1 for n in launches.values())
+            and general_launches(A) == 0,
+            f"granite attention: one launch of each of K1-K3, got "
+            f"{launches}, general {general_launches(A)}")
+    _, lse = A.flash_fwd(q.detach(), ek.detach(), ev.detach(), True, sc)
+    del ek, ev
+    diff = dict.fromkeys(("o", "dq", "dk", "dv"), 0.0)
+    top = dict.fromkeys(diff, 0.0)
+    e_lse = 0.0
+    for i in range(batch):
+        for g in range(kv):
+            qs = slice(g * group, (g + 1) * group)
+            rq = q.detach()[i:i + 1, qs].float().requires_grad_()
+            rk, rv = (t.detach()[i:i + 1, g:g + 1].float().requires_grad_()
+                      for t in (k, v))
+            ro, rlse = A.mha_reference_with_lse(
+                rq, *expand_kv_heads(rk, rv, group, group, q0=g * group,
+                                     k0=g), True, sc)
+            ro.backward(do[i:i + 1, qs].float())
+            e_lse = max(e_lse, (lse[i:i + 1, qs] - rlse.detach()).abs()
+                        .max().item())
+            for name, got, ref in (
+                    ("o", o[i:i + 1, qs], ro), ("dq", q.grad[i:i + 1, qs],
+                                                 rq.grad),
+                    ("dk", k.grad[i:i + 1, g:g + 1], rk.grad),
+                    ("dv", v.grad[i:i + 1, g:g + 1], rv.grad)):
+                ref = ref.detach()
+                diff[name] = max(diff[name], (got.detach().float() - ref)
+                                 .abs().max().item())
+                top[name] = max(top[name], ref.abs().max().item())
+            del ro, rlse, rq, rk, rv
+    e = {n: diff[n] / max(top[n], 1e-12) for n in diff}
+    print(f"check K1-K3 via attention() [{batch},{heads},{seq},{hd}] "
+          f"(KV heads {kv} expanded) causal bf16 scale {sc}: o {e['o']:.3e} "
+          f"(tol {TOL_VS_PLAIN}), lse abs {e_lse:.3e} (tol {TOL_LSE}); vs "
+          f"fp32 plain autograd: dq {e['dq']:.3e} dk {e['dk']:.3e} dv "
+          f"{e['dv']:.3e} (tol {TOL_VS_FP32})")
+    require(e["o"] < TOL_VS_PLAIN and e_lse < TOL_LSE,
+            "granite attention forward vs plain")
+    require(max(e["dq"], e["dk"], e["dv"]) < TOL_VS_FP32,
+            "granite attention gradients vs fp32 autograd")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+    init, step_fn = build_train(
+        lambda _g: gh.GraniteHybrid(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+        lambda m, b: m.loss_fn(b), optimizer=adafactor(1e-4))
+    model, opt_state, step = init(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    *_, met = step_fn(model, opt_state, step, {"tokens": tokens})
+    loss = met["loss"].item()
+    step_s = time.perf_counter() - t0
+    n_attn = cfg.layer_types.count("attention")
+    step_launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
+    expect = {"flash_fwd": 2 * n_attn, "flash_bwd_dkdv": n_attn,
+              "flash_bwd_dq": n_attn}
+    print(f"granite-4.0-h-small 10-layer cut: {param_count(model)} "
+          f"parameters, batch {batch} x S {seq}: first loss {loss:.4f} "
+          f"(ln vocab {math.log(cfg.vocab_size):.3f}), first step "
+          f"{step_s:.3f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; launches "
+          f"{step_launches} (expect {expect}: each of {n_attn} attention "
+          f"layers K1 for the forward and its recompute, K2 and K3 once); "
+          f"general kernels {general_launches(A)}")
+    require(math.isfinite(loss)
+            and abs(loss - math.log(cfg.vocab_size)) < 1.0,
+            f"granite first loss {loss}")
+    require(step_launches == expect and general_launches(A) == 0,
+            "granite launch counts")
+    del model, opt_state, tokens, met
+    torch.cuda.empty_cache()
+    print(f"phase 3d (granite): {time.perf_counter() - t_phase:.3f} s wall")
+    return dict(launches=step_launches,
+                errs={"flash_fwd": e["o"],
+                      "flash_bwd_dkdv": max(e["dk"], e["dv"]),
+                      "flash_bwd_dq": e["dq"]})
 
 
 def run_steps(torch, step_fn, state, data, warm, steps):

@@ -1,11 +1,13 @@
 """Models of the port (counterparts of the JAX package's ``models``):
-GPT-2, Llama, ResNet and ViT, and ``common``. Each family loads when
-first named (``ray_tpu_torch.models.gpt2``), as in the JAX package.
+GPT-2, Llama, ResNet and ViT, and ``common``; and Granite 4.0-H
+(``granite_hybrid``), which the JAX package does not have. Each family
+loads when first named (``ray_tpu_torch.models.gpt2``), as in the JAX
+package.
 """
 
 import importlib
 
-__all__ = ["common", "gpt2", "llama", "resnet", "vit"]
+__all__ = ["common", "gpt2", "granite_hybrid", "llama", "resnet", "vit"]
 
 
 def __getattr__(name):

@@ -12,6 +12,8 @@ from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # LayerNorm in fp32, returned in x's dtype: the CUDA kernels for tensors on
 # a card, the plain composite on the CPU and for DTensors.
@@ -66,6 +68,49 @@ def cross_entropy_sums(logits, targets, ignore_id: int = -1
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def chunked_cross_entropy(x, wte, targets, loss_chunk: int):
+    """(nll_sum, count) of the tied head's logits of x [..., d] against
+    targets, in chunks of tokens (even chunks rounded to 256 tokens, as the
+    JAX package cuts them), each under ``torch.utils.checkpoint``: only one
+    chunk's fp32 logits are live, and the backward recomputes them."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d)
+    tf = targets.reshape(-1)
+    n = xf.shape[0]
+    n_chunks = max(1, -(-n // loss_chunk))
+    per_chunk = -(-n // n_chunks)
+    chunk = min(n, -(-per_chunk // 256) * 256) if n >= 256 else n
+    pad = (-n) % chunk
+    if pad:
+        xf = F.pad(xf, (0, 0, 0, pad))
+        tf = F.pad(tf, (0, pad), value=-1)  # ignore_id
+    nll_sum = torch.zeros((), device=x.device)
+    denom = torch.zeros((), device=x.device)
+    for xi, ti in zip(xf.split(chunk), tf.split(chunk)):
+        nll, count = checkpoint(_chunk_loss, xi, wte, ti, use_reentrant=False)
+        nll_sum = nll_sum + nll
+        denom = denom + count
+    return nll_sum, denom
+
+
+def _chunk_loss(xi, wte, ti):
+    return cross_entropy_sums(lm_logits(xi, wte), ti)
+
+
+def expand_kv_heads(k, v, heads: int, group: int, q0: int = 0, k0: int = 0):
+    """Grouped-query attention's KV heads, one for each query head: k, v
+    ``[B, Hkv, S, hd]`` -> ``[B, heads, S, hd]``, query head ``q0 + i``
+    reading KV head ``(q0 + i) // group``, of which this tensor holds the
+    heads from ``k0`` on (``q0``, ``k0``: the first heads a rank holds)."""
+    hk = k.shape[1]
+    if q0 // group < k0 or (q0 + heads - 1) // group >= k0 + hk:
+        raise ValueError(
+            f"query heads [{q0}, {q0 + heads}) read KV heads this rank "
+            f"does not hold ([{k0}, {k0 + hk}))")
+    idx = (q0 + torch.arange(heads, device=k.device)) // group - k0
+    return k.index_select(1, idx), v.index_select(1, idx)
 
 
 def cross_entropy_loss(logits, targets, ignore_id: int = -1):

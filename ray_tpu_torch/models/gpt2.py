@@ -77,7 +77,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import attention as attention_op
 from ..parallel.sharding import (P, constrain, current_mesh, is_dtensor,
                                  mesh_sizes, smap, spec_axes, spec_for)
-from .common import (cross_entropy_sums, layer_norm, lm_logits,
+from .common import (chunked_cross_entropy, layer_norm, lm_logits,
                      truncated_normal)
 
 
@@ -708,7 +708,7 @@ class GPT2(nn.Module):
             axes = spec_axes(x_spec)
 
             def body(x, wte, t):
-                nll, count = _chunked_ce(x, wte, t, loss_chunk)
+                nll, count = chunked_cross_entropy(x, wte, t, loss_chunk)
                 return psum(nll, axes), psum(count, axes)
 
             nll_sum, denom = smap(
@@ -716,7 +716,8 @@ class GPT2(nn.Module):
                 in_specs=(x_spec, P(), spec_for(("batch", "seq"), rules)),
                 out_specs=(P(), P()))(x, wte, targets)
         else:
-            nll_sum, denom = _chunked_ce(x, wte, targets, loss_chunk)
+            nll_sum, denom = chunked_cross_entropy(x, wte, targets,
+                                                   loss_chunk)
         loss = nll_sum / denom.clamp_min(1.0)
         if self.cfg.num_experts > 0:
             loss = loss + self.cfg.moe_aux_weight * aux / self.cfg.num_layers
@@ -729,33 +730,6 @@ def _pp_axis_size(rules) -> int:
     if mesh is None or rules is None or rules.get("layers") != "pp":
         return 1
     return mesh_sizes(mesh).get("pp", 1)
-
-
-def _chunked_ce(x, wte, targets, loss_chunk: int):
-    """(nll_sum, count) of x [..., d] against targets, in chunks of tokens
-    (even chunks rounded to 256 tokens, as the JAX package cuts them)."""
-    d = x.shape[-1]
-    xf = x.reshape(-1, d)
-    tf = targets.reshape(-1)
-    n = xf.shape[0]
-    n_chunks = max(1, -(-n // loss_chunk))
-    per_chunk = -(-n // n_chunks)
-    chunk = min(n, -(-per_chunk // 256) * 256) if n >= 256 else n
-    pad = (-n) % chunk
-    if pad:
-        xf = F.pad(xf, (0, 0, 0, pad))
-        tf = F.pad(tf, (0, pad), value=-1)  # ignore_id
-    nll_sum = torch.zeros((), device=x.device)
-    denom = torch.zeros((), device=x.device)
-    for xi, ti in zip(xf.split(chunk), tf.split(chunk)):
-        nll, count = checkpoint(_chunk_loss, xi, wte, ti, use_reentrant=False)
-        nll_sum = nll_sum + nll
-        denom = denom + count
-    return nll_sum, denom
-
-
-def _chunk_loss(xi, wte, ti):
-    return cross_entropy_sums(lm_logits(xi, wte), ti)
 
 
 def flops_per_token(cfg: GPT2Config, seq: int) -> float:

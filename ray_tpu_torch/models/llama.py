@@ -77,8 +77,8 @@ from ..parallel.collective import all_gather, axis_index, axis_size, psum
 from ..parallel.sharding import (P, constrain, current_mesh, is_dtensor,
                                  mesh_sizes, smap, spec_axes, spec_for,
                                  use_mesh)
-from .common import (cross_entropy_loss, cross_entropy_sums, lm_logits,
-                     rms_norm, truncated_normal)
+from .common import (cross_entropy_loss, cross_entropy_sums, expand_kv_heads,
+                     lm_logits, rms_norm, truncated_normal)
 
 _NEG = -1e30
 
@@ -236,13 +236,8 @@ def _causal_attention(q, k, v, rot, group: int, rules):
         hq, hk = q.shape[1], k.shape[1]
         q0, k0 = ((_first_head(qs) * hq, _first_head(ks) * hk) if sharded
                   else (0, 0))
-        if q0 // group < k0 or (q0 + hq - 1) // group >= k0 + hk:
-            raise ValueError(
-                f"query heads [{q0}, {q0 + hq}) read KV heads this rank "
-                f"does not hold ([{k0}, {k0 + hk}))")
-        idx = (q0 + torch.arange(hq, device=q.device)) // group - k0
-        return attention_op(q.contiguous(), k.index_select(1, idx),
-                            v.index_select(1, idx), causal=True)
+        k, v = expand_kv_heads(k, v, hq, group, q0, k0)
+        return attention_op(q.contiguous(), k, v, causal=True)
 
     if sharded:
         return smap(body, current_mesh(), in_specs=(qs, ks, ks, P(), P()),
