@@ -61,6 +61,17 @@ Phases; any failure exits non-zero:
      bound (bytes over the data sheet's bandwidth), the plain composite
      and F.layer_norm (never used by the port); the training phases of 5
      count the LayerNorm launches a step and require them;
+  4c. holds the scan's kernels (ops/ssd.py; chunk_state, state_pass,
+     chunk_scan, chunk_dg, chunk_bc) against the plain scan at the
+     granite-4.0-h-small cell's shape, [8,8192,128,64] n 128 chunk 256,
+     x, B and C split from one bf16 row a position as the mixer leaves
+     them: y and the gradients of x, dt, A, B and C against the plain
+     version's fp32 autograd (TOL_SSD), each kernel launched as a call
+     needs; then times the forward and the backward (device time) beside
+     their bound (portbench/roofline_ssd.py), the plain version, and the
+     instantiations' registers and spills; phase 3d's step requires each
+     Mamba layer's launches (forward, recompute, and the backward's own
+     chunk_state and state_pass forward before its five kernels);
   5. checks a tiny GPT-2 training step through the kernels against the
      same step through the plain attention, then trains gpt2-124m (bf16,
      fp32 master, adamw_lowmem, batch 8, seq 1024) for 2 + 5 steps with
@@ -330,6 +341,10 @@ TOL_VS_FP32 = 2e-2       # kernel vs fp32 autograd of the plain attention
 TOL_LSE = 1e-3           # absolute, fp32 lse (natural log units)
 TOL_VS_PLAIN_FP32 = 1e-5  # general kernels on fp32 inputs: sum order only
 TOL_NORM = 2 ** -7       # LayerNorm kernels vs plain: one bf16 rounding
+# The scan's kernels vs the plain fp32 scan, relative to the largest entry:
+# their products take bf16 operands (dy, the states and the decays times
+# C B^T rounded once), ~2-6e-3 read at the cell's shape.
+TOL_SSD = 1e-2
 TOL_E2E_LOSS = 1e-2      # tiny GPT-2: kernels vs plain attention, relative
 TOL_E2E_GRAD = 5e-2      # same, per-parameter gradient, relative to max
 # llama-1b serving checks, as the largest |logit difference| over the
@@ -411,6 +426,11 @@ def ptxas_report(log):
                 out[inst] = dict(registers=None, smem_static=0,
                                  spill_stores=0, spill_loads=0)
                 continue
+            if "3ssd" in name:  # rtt::ssd (the scan): kernel, (p, n, chunk)
+                inst = ssd_instance(name)
+                out[inst] = dict(registers=None, smem_static=0,
+                                 spill_stores=0, spill_loads=0)
+                continue
             # Hopper kernels: sm90::Bf16/Fp16 and D; general kernels:
             # float/__nv_bfloat16/__half and DL = ceil(D / 32).
             if "Bf16" in name or "bfloat16" in name:
@@ -439,6 +459,22 @@ def ptxas_report(log):
             out[inst]["spill_stores"] = int(m.group(1))
             out[inst]["spill_loads"] = int(m.group(2))
     return out
+
+
+def ssd_instance(mangled):
+    """A scan kernel's instantiation from its mangled name, as
+    ``chunk_scan_64_128_256_bwd``: the kernel, its (p, n, chunk) or (p,
+    chunk), and its mode (fwd/bwd; chunk_bc's dc/db)."""
+    m = re.search(r"3ssd\d+(\w+?)I(.*)EEvNS0_4Args", mangled)
+    if m is None:
+        return mangled
+    kernel, params = m.groups()
+    dims = re.findall(r"Li(\d+)E", params)
+    flag = re.search(r"Lb(\d)E", params)
+    mode = "" if flag is None else "_" + (
+        ("dc" if flag.group(1) == "1" else "db") if kernel == "chunk_bc"
+        else ("fwd" if flag.group(1) == "1" else "bwd"))
+    return "_".join([kernel] + dims) + mode
 
 
 def rel_err(a, ref):
@@ -701,6 +737,11 @@ def main(argv):
     t0 = time.perf_counter()
     norm_time = norm_phase(torch, gen)
     print(f"phase 4b (LayerNorm): {time.perf_counter() - t0:.3f} s wall")
+
+    # -- 4c. the scan's kernels at the Granite cell's shape --------------------
+    t0 = time.perf_counter()
+    ssd_time = ssd_phase(torch, gen, ptxas)
+    print(f"phase 4c (scan): {time.perf_counter() - t0:.3f} s wall")
 
     # -- 5a. tiny GPT-2 step: kernels against the plain attention ------------
     tiny = dict(vocab_size=512, max_seq=128, num_layers=2, num_heads=2,
@@ -966,6 +1007,13 @@ def main(argv):
     ln["launches_mesh_of_one_per_step"] = {
         name: r["layer_norm_calls"] for name, r in par.items()}
     kernels.append(ln)
+    kernels.append(dict(
+        name="ssd", route="cuda",
+        source="ray_tpu_torch/ops/csrc/ssd_{state,scan,grad}.cu",
+        replaces="none: the JAX package has no Mamba layer",
+        ptxas={lib: ptxas[lib] for lib in ("ssd_state", "ssd_scan",
+                                           "ssd_grad")},
+        at=ssd_time, launches_granite_per_step=granite["ssd_launches"]))
     for cell, calls in (
             ("gpt2-1.5b.s1024-b16", train_15b["layer_norm_calls"]),
             ("gpt2-355m.s16384-b4", long_ctx[16384]["layer_norm_calls"])):
@@ -2828,6 +2876,98 @@ def norm_phase(torch, gen):
     return out
 
 
+SSD_SHAPE = (8, 8192, 128, 64, 128, 256)  # b, S, heads, p, n, chunk
+
+
+def ssd_inputs(torch, gen, b, s, h, p, n):
+    """The mixer's layout: x, B and C split from one bf16 row of h p + 2 n
+    a position; dt after a softplus, A = -exp of normals."""
+    dev = gen.device
+    xbc = torch.randn(b, s, h * p + 2 * n, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    x = xbc[..., :h * p].unflatten(-1, (h, p))
+    B, C = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen, device=dev) - 1.0)
+    A = -torch.exp(torch.randn(h, generator=gen, device=dev))
+    return x, dt, A, B, C
+
+
+def ssd_phase(torch, gen, ptxas):
+    """Phase 4c: the scan's kernels at the Granite cell's shape against the
+    plain scan's fp32 autograd (y and the five gradients within TOL_SSD of
+    each one's largest entry; one launch of each kernel forward, and each
+    of the backward's), then the forward and the backward timed (device
+    time) beside their bound, the plain version and ptxas's registers and
+    spills."""
+    from portbench import roofline_ssd
+    from ray_tpu_torch.ops import ssd
+
+    b, s, h, p, n, q = SSD_SHAPE
+    x, dt, A, B, C = ssd_inputs(torch, gen, b, s, h, p, n)
+    dy = torch.randn(b, s, h, p, generator=gen, device=gen.device)
+    ins = [t.detach().requires_grad_() for t in (x, dt, A, B, C)]
+    ssd.reset_counts()
+    y = ssd.ssd(*ins, chunk=q)
+    grads = torch.autograd.grad(y, ins, dy)
+    counts = ssd.counts()
+    refs = [t.detach().float().requires_grad_() for t in (x, dt, A, B, C)]
+    yr = ssd.ssd_reference(*refs, chunk=q)
+    want = torch.autograd.grad(yr, refs, dy)
+    torch.cuda.synchronize()
+    names = ("y", "dx", "ddt", "dA", "dB", "dC")
+    errs = dict(zip(names, [rel_err(y, yr)] + [rel_err(a, r) for a, r in
+                                               zip(grads, want)]))
+    del ins, y, grads, refs, yr, want
+    # The backward makes the entering states again (chunk_state and
+    # state_pass forward) before its own five kernels.
+    expect = {"chunk_state": 3, "state_pass": 3, "chunk_scan": 2,
+              "chunk_dg": 1, "chunk_bc": 2}
+    print(f"check ssd [{b},{s},{h},{p}] n {n} chunk {q} (bf16 x, B, C) vs "
+          f"fp32 plain autograd: rel " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {TOL_SSD}); launches {counts} (expect {expect})")
+    require(max(errs.values()) <= TOL_SSD, "ssd kernels vs plain")
+    require(counts == expect, "ssd launches a call")
+    y = ssd.ssd_kernel_forward(x, dt, A, B, C, q)[0]
+    work = roofline_ssd.ssd_call(b, s, h, p, n, q)
+    ways = {
+        "forward": dict(
+            fn=lambda: ssd.ssd_kernel_forward(x, dt, A, B, C, q),
+            plain=lambda: ssd.ssd_reference(x, dt, A, B, C, q)),
+        "backward": dict(
+            fn=lambda: ssd.ssd_kernel_backward(dy, x, dt, A, B, C, q)),
+    }
+    out = dict(shape=[b, s, h, p, n, q], errs=errs)
+    for way, r in ways.items():
+        ms = time_ms(torch, r["fn"], reps=10)
+        if way == "forward":
+            with torch.no_grad():
+                plain_ms = time_ms(torch, r["plain"], warmup=1, reps=3)
+        else:
+            refs = [t.detach().float().requires_grad_()
+                    for t in (x, dt, A, B, C)]
+            yr = ssd.ssd_reference(*refs, chunk=q)
+            plain_ms = time_ms(torch, lambda: torch.autograd.grad(
+                yr, refs, dy, retain_graph=True), warmup=1, reps=3)
+            del refs, yr
+        w = work["fwd" if way == "forward" else "bwd"]
+        b_ms, by = bound(w["flops"], w["bytes"])
+        out[way] = dict(ms=ms, bound_ms=b_ms, bound_by=by, plain_ms=plain_ms,
+                        gflop=w["flops"] / 1e9, mb=w["bytes"] / 1e6)
+        print(f"time ssd {way} [{b},{s},{h},{p}] n {n} chunk {q}: {ms:.4f} "
+              f"ms; bound {b_ms:.4f} ms by {by} ({w['flops'] / 1e9:.1f} "
+              f"GFLOP, {w['bytes'] / 1e6:.1f} MB; {100 * b_ms / ms:.2f}% of "
+              f"bound); plain {plain_ms:.4f} ms")
+    for lib in ("ssd_state", "ssd_scan", "ssd_grad"):
+        for inst, r in ptxas[lib].items():
+            print(f"ptxas {inst}: {r['registers']} registers, spill stores "
+                  f"{r['spill_stores']} loads {r['spill_loads']}")
+    del x, dt, A, B, C, dy, y
+    torch.cuda.empty_cache()
+    return out
+
+
 def layer_norm_calls(label, n, layers=None, recompute=False):
     """The LayerNorm calls a step over the ``n`` steps since
     ``norm.reset_counts()``: the forward and backward kernels' launches and
@@ -2904,6 +3044,7 @@ def granite_phase(torch, A, gen):
     K3: dq)."""
     from ray_tpu_torch.models import granite_hybrid as gh
     from ray_tpu_torch.models.common import expand_kv_heads, param_count
+    from ray_tpu_torch.ops import ssd
     from ray_tpu_torch.train.optim import adafactor
     from ray_tpu_torch.train.step import build_train
 
@@ -2984,6 +3125,7 @@ def granite_phase(torch, A, gen):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     A.reset_launch_counts()
+    ssd.reset_counts()
     t0 = time.perf_counter()
     *_, met = step_fn(model, opt_state, step, {"tokens": tokens})
     loss = met["loss"].item()
@@ -3005,10 +3147,18 @@ def granite_phase(torch, A, gen):
             f"granite first loss {loss}")
     require(step_launches == expect and general_launches(A) == 0,
             "granite launch counts")
+    n_mamba = cfg.layer_types.count("mamba")
+    ssd_expect = {"chunk_state": 4 * n_mamba, "state_pass": 4 * n_mamba,
+                  "chunk_scan": 3 * n_mamba, "chunk_dg": n_mamba,
+                  "chunk_bc": 2 * n_mamba}
+    print(f"granite step: scan launches {ssd.counts()} (expect {ssd_expect}"
+          f": each of {n_mamba} Mamba layers forward, recomputed and "
+          f"backward)")
+    require(ssd.counts() == ssd_expect, "granite scan launch counts")
     del model, opt_state, tokens, met
     torch.cuda.empty_cache()
     print(f"phase 3d (granite): {time.perf_counter() - t_phase:.3f} s wall")
-    return dict(launches=step_launches,
+    return dict(launches=step_launches, ssd_launches=ssd.counts(),
                 errs={"flash_fwd": e["o"],
                       "flash_bwd_dkdv": max(e["dk"], e["dv"]),
                       "flash_bwd_dq": e["dq"]})

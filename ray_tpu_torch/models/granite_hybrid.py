@@ -204,7 +204,10 @@ class MambaMixer(nn.Module):
         z, xbc, dt = (h @ self.in_proj).split([di, di + 2 * n, heads], -1)
         xbc = F.conv1d(xbc.transpose(1, 2), self.conv_w[:, None], self.conv_b,
                        padding=cfg.mamba_d_conv - 1, groups=xbc.shape[-1])
-        x, B, C = F.silu(xbc[..., :s].transpose(1, 2)).split([di, n, n], -1)
+        # Position-major, so that a position's x, B and C are rows (the
+        # scan's kernels read them so).
+        x, B, C = F.silu(xbc[..., :s].transpose(1, 2)).contiguous().split(
+            [di, n, n], -1)
         x = x.unflatten(-1, (heads, cfg.mamba_d_head))
         dt = F.softplus(dt.float() + self.dt_bias.float())
         A = -torch.exp(self.A_log.float())

@@ -23,7 +23,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd_general",
-           "flash_bwd_dkdv_general", "flash_bwd_dq_general", "layer_norm")
+           "flash_bwd_dkdv_general", "flash_bwd_dq_general", "layer_norm",
+           "ssd_state", "ssd_scan", "ssd_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -93,6 +94,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
     return seconds
+
+
+def has_library(name: str) -> bool:
+    """Whether kernel ``name``'s library is loaded in this process."""
+    return name in _libs
 
 
 def load(name: str, entries) -> ctypes.CDLL:

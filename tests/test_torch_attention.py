@@ -344,13 +344,15 @@ def test_every_kernel_is_built_on_the_hopper_header():
     """Each Hopper kernel source includes csrc/hopper.cuh and runs its
     products on wgmma; each general one (fp32 or head dims other than 64
     and 128) includes csrc/general.cuh; the LayerNorm source (its own
-    group: no products) includes neither; no mma.sync is left anywhere,
-    and those are the only headers."""
+    group: no products) includes neither; the Mamba-2 scan's sources (their
+    own group) include csrc/ssd.cuh, whose products are mma.sync; no other
+    source has mma.sync, and those are the only headers."""
     hopper = {f.__name__ for f in tattn.KERNEL_WRAPPERS}
     general = {f.__name__ for f in tattn.GENERAL_WRAPPERS}
     norm = {"layer_norm"}
+    scan = {"ssd_state", "ssd_scan", "ssd_grad"}
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == \
-        hopper | general | norm
+        hopper | general | norm | scan
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
         assert "mma.sync" not in text, src.name
@@ -359,12 +361,19 @@ def test_every_kernel_is_built_on_the_hopper_header():
             assert "wgmma_" in text, src.name
         elif src.stem in general:
             assert '#include "general.cuh"' in text, src.name
+        elif src.stem in scan:
+            assert '#include "ssd.cuh"' in text, src.name
+            assert "hopper.cuh" not in text and "general.cuh" not in text
+            assert f'extern "C" int {src.stem}_launch(' in text, src.name
         else:
             assert ".cuh" not in text and "wgmma" not in text, src.name
             for entry in ("layer_norm_fwd", "layer_norm_bwd"):
                 assert f'extern "C" int {entry}(' in text, entry
+    for header in ("hopper.cuh", "general.cuh"):
+        assert "mma.sync" not in (_build.CSRC / header).read_text(), header
+    assert "mma.sync" in (_build.CSRC / "ssd.cuh").read_text()
     assert sorted(p.name for p in _build.CSRC.glob("*.cuh")) == [
-        "general.cuh", "hopper.cuh"]
+        "general.cuh", "hopper.cuh", "ssd.cuh"]
 
 
 def test_build_names_every_kernel_source():

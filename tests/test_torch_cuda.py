@@ -789,3 +789,180 @@ def test_cuda_learner_update_matches_cpu(cuda, case):
     assert loss_c.ndim == 0
     assert abs(loss_g.item() - loss_c.item()) <= 1e-5 * abs(loss_c.item())
     algo.stop()
+
+
+# -- the scan's kernels (csrc/ssd_*.cu, ops/ssd.py) --------------------------
+
+# Relative to each output's largest entry: the kernels' products take bf16
+# operands (dy, the states and the decays times C B^T rounded once, at the
+# product), 2-6e-3 read against the plain version's fp32 autograd.
+TOL_SSD = 1e-2
+
+
+def _ssd_inputs(cuda, b, s, h, p, n, seed=0):
+    """x, B and C split from one bf16 row a position, as the Granite mixer
+    leaves them; dt after a softplus; A = -exp of normals."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xbc = torch.randn((b, s, h * p + 2 * n), generator=g, device=cuda,
+                      dtype=BF16)
+    x = xbc[..., :h * p].unflatten(-1, (h, p))
+    B, C = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=g, device=cuda) - 1.0)
+    A = -torch.exp(torch.randn(h, generator=g, device=cuda))
+    return x, dt, A, B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 1000, 8, 64, 128, 256),   # granite's widths: 4 chunks, the last ragged
+    (1, 256, 2, 64, 128, 256),    # one whole chunk
+    (2, 150, 3, 32, 16, 64),      # the small instantiation, ragged
+])
+def test_cuda_ssd_kernels_match_plain(cuda, b, s, h, p, n, chunk):
+    """y and the gradients of x, dt, A, B and C through ``ssd`` (the
+    kernels) against the plain version's fp32 autograd on the same
+    inputs, each in its input's type, within TOL_SSD."""
+    from ray_tpu_torch.ops import ssd
+
+    ins = [t.detach().requires_grad_()
+           for t in _ssd_inputs(cuda, b, s, h, p, n)]
+    ssd.reset_counts()
+    y = ssd.ssd(*ins, chunk=chunk)
+    dy = torch.randn(y.shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(3))
+    grads = torch.autograd.grad(y, ins, dy)
+    refs = [t.detach().float().requires_grad_() for t in ins]
+    want = ssd.ssd_reference(*refs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and y.shape == want.shape
+    assert (y - want).abs().max() <= TOL_SSD * want.abs().max()
+    for name, got, ref, t in zip(("x", "dt", "A", "B", "C"), grads,
+                                 torch.autograd.grad(want, refs, dy), ins):
+        assert got.dtype == t.dtype and got.shape == t.shape, name
+        err = (got.float() - ref).abs().max() / ref.abs().max()
+        assert err <= TOL_SSD, (name, err.item())
+    # The backward makes the entering states again: chunk_state and
+    # state_pass twice in it.
+    assert ssd.counts() == {"chunk_state": 3, "state_pass": 3,
+                            "chunk_scan": 2, "chunk_dg": 1, "chunk_bc": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_backward_is_deterministic(cuda):
+    """The backward's sums over heads and chunks are taken in a fixed
+    order (no atomics): two backward calls give the same bits."""
+    from ray_tpu_torch.ops import ssd
+
+    x, dt, A, B, C = _ssd_inputs(cuda, 2, 1000, 8, 64, 128, seed=1)
+    y = ssd.ssd_kernel_forward(x, dt, A, B, C, 256)[0]
+    dy = torch.randn(y.shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(4))
+    first = ssd.ssd_kernel_backward(dy, x, dt, A, B, C, 256)
+    second = ssd.ssd_kernel_backward(dy, x, dt, A, B, C, 256)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_keeps_nothing_chunk_by_chunk_per_head(cuda):
+    """Every tensor the kernel path makes, forward and backward (each op's
+    outputs, seen by a dispatch mode), is smaller than one [chunk, chunk]
+    block a head: the only chunk x chunk tensor is the gradient of C B^T,
+    one block a (batch row, chunk), summed over the heads."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ray_tpu_torch.ops import ssd
+
+    b, s, h, p, n, q = 2, 1000, 8, 64, 128, 256
+    c = -(-s // q)
+    shapes = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    shapes.append(tuple(t.shape))
+            return out
+
+    ins = [t.detach().requires_grad_()
+           for t in _ssd_inputs(cuda, b, s, h, p, n)]
+    with Record():
+        y = ssd.ssd(*ins, chunk=q)
+        torch.autograd.grad(y, ins, torch.ones_like(y))
+    torch.cuda.synchronize()
+    quadratic = [sh for sh in shapes if len(sh) >= 2 and sh[-2:] == (q, q)]
+    assert quadratic and all(torch.Size(sh).numel() == b * c * q * q
+                             for sh in quadratic)
+    per_head = b * h * c * q * q
+    assert all(torch.Size(sh).numel() < per_head for sh in shapes)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_refuses_what_it_has_no_instantiation_for(cuda):
+    """A p, n or chunk the kernels are not built for, fp32 x, or x whose
+    heads are not contiguous: ``ssd`` raises before any launch."""
+    from ray_tpu_torch.ops import ssd
+
+    ssd.reset_counts()
+    for (p, n, chunk) in ((48, 128, 256), (64, 64, 256), (64, 128, 128),
+                          (32, 16, 256)):
+        x, dt, A, B, C = _ssd_inputs(cuda, 1, 300, 2, p, n)
+        with pytest.raises(ValueError, match="built for"):
+            ssd.ssd(x, dt, A, B, C, chunk)
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 300, 2, 64, 128)
+    with pytest.raises(TypeError):
+        ssd.ssd(x.float(), dt, A, B, C, 256)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C,
+                256)
+    assert sum(ssd.counts().values()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_granite_step_takes_the_scan_kernels(cuda):
+    """A tiny Granite 4.0-H (bf16, Mamba heads of 64, d_state 128, chunk
+    256, S 300) trains a step on the card: each Mamba layer's scan runs
+    the kernels forward, in its recompute and backward, and every ssm span
+    says so (``impl`` "kernel")."""
+    from ray_tpu_torch.models import granite_hybrid as gh
+    from ray_tpu_torch.observability import tracing
+    from ray_tpu_torch.ops import ssd
+    from ray_tpu_torch.train.optim import adafactor
+    from ray_tpu_torch.train.step import build_train
+
+    cfg = gh.GraniteHybridConfig(
+        vocab_size=512, hidden_size=128, num_hidden_layers=3,
+        layer_types=("mamba", "attention", "mamba"), num_attention_heads=2,
+        num_key_value_heads=1, mamba_n_heads=4, mamba_d_head=64,
+        mamba_d_state=128, mamba_chunk_size=256, num_local_experts=4,
+        num_experts_per_tok=2, intermediate_size=64,
+        shared_intermediate_size=64, dtype=BF16)
+    init, step = build_train(
+        lambda g: gh.GraniteHybrid(cfg, g, device="cpu"),
+        lambda m, b: m.loss_fn(b), optimizer=adafactor(1e-3))
+    state = init(0)
+    tokens = torch.randint(0, 512, (2, 301), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(2))
+    tracer = tracing.get_tracer()
+    was = tracer.enabled
+    tracer.clear()
+    tracing.enable()
+    ssd.reset_counts()
+    try:
+        *state, met = step(*state, {"tokens": tokens})
+        torch.cuda.synchronize()
+    finally:
+        if not was:
+            tracer.disable()
+    spans = [sp for sp in tracer.spans() if sp.name.startswith("ssm.")]
+    tracer.clear()
+    assert torch.isfinite(met["loss"])
+    assert ssd.counts() == {"chunk_state": 8, "state_pass": 8,
+                            "chunk_scan": 6, "chunk_dg": 2, "chunk_bc": 4}
+    assert sorted(sp.name for sp in spans) == ["ssm.backward"] * 2 + [
+        "ssm.forward"] * 4
+    assert all(sp.attributes["impl"] == "kernel" for sp in spans)

@@ -288,3 +288,95 @@ def test_expand_kv_heads_refuses_heads_it_does_not_hold():
     assert ek.flatten().tolist() == [0, 0, 1, 1, 2, 2]
     with pytest.raises(ValueError, match="does not hold"):
         expand_kv_heads(k[:, :1], k[:, :1], 4, 2, q0=0, k0=0)
+
+
+def test_cpu_scans_take_the_plain_path_and_say_so():
+    """CPU tensors take the plain scan: a traced step's ``ssm.*`` spans all
+    say ``impl`` "plain" and no kernel is launched."""
+    model = _model()
+    init, step = build_train(lambda _g: model, lambda m, b: m.loss_fn(b),
+                             optim.adafactor(LR), device="cpu")
+    state = init(0)
+    tracer = tracing.get_tracer()
+    was = tracer.enabled
+    tracer.clear()
+    tracing.enable()
+    ssd_mod.reset_counts()
+    try:
+        step(*state, {"tokens": _tokens()})
+    finally:
+        if not was:
+            tracer.disable()
+    scans = [s for s in tracer.spans() if s.name.startswith("ssm.")]
+    tracer.clear()
+    assert len(scans) == 6
+    assert all(s.attributes["impl"] == "plain" for s in scans)
+    assert sum(ssd_mod.counts().values()) == 0
+
+
+def _kernel_inputs(b=2, s=300, h=2, p=64, n=128):
+    """The mixer's layout: x, B and C split from one bf16 row a position."""
+    xbc = torch.zeros(b, s, h * p + 2 * n, dtype=torch.bfloat16)
+    x = xbc[..., :h * p].unflatten(-1, (h, p))
+    B, C = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    return dict(x=x, dt=torch.ones(b, s, h), A=-torch.ones(h), B=B, C=C)
+
+
+def test_kernel_checks_take_the_mixers_layout():
+    for p, n, chunk in ssd_mod.KERNEL_SHAPES:
+        ins = _kernel_inputs(p=p, n=n)
+        ssd_mod.check_kernel_layout(**ins, chunk=chunk)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_mod.check_kernel_inputs(**_kernel_inputs(), chunk=256)
+
+
+def _bad(name):
+    ins = _kernel_inputs()
+    if name == "x fp32":
+        ins["x"] = ins["x"].float()
+    elif name == "dt bf16":
+        ins["dt"] = ins["dt"].bfloat16()
+    elif name == "B fp32":
+        ins["B"] = ins["B"].float()
+    elif name == "dt shape":
+        ins["dt"] = ins["dt"][:, :-1]
+    elif name == "A shape":
+        ins["A"] = -torch.ones(3)
+    elif name == "C shape":
+        ins["C"] = ins["C"][:, :-1]
+    elif name == "p 48":
+        ins["x"] = ins["x"][..., :48]
+    elif name == "heads strided":
+        ins["x"] = ins["x"].transpose(2, 3).contiguous().transpose(2, 3)
+    elif name == "B, C strides differ":
+        ins["C"] = ins["C"].contiguous()
+    elif name == "position stride":
+        ins["x"] = torch.zeros(2, 300, 2 * 64 + 4,
+                               dtype=torch.bfloat16)[..., :128].unflatten(
+                                   -1, (2, 64))
+    elif name == "misaligned":
+        base = torch.zeros(2 * 300 * 384 + 8, dtype=torch.bfloat16)
+        ins["B"] = base[4:4 + 2 * 300 * 384].view(2, 300, 384)[..., :128]
+        ins["C"] = base[4:4 + 2 * 300 * 384].view(2, 300, 384)[..., 128:256]
+    return ins
+
+
+@pytest.mark.parametrize("name,chunk,error", [
+    ("x fp32", 256, TypeError), ("dt bf16", 256, TypeError),
+    ("B fp32", 256, TypeError), ("dt shape", 256, ValueError),
+    ("A shape", 256, ValueError), ("C shape", 256, ValueError),
+    ("p 48", 256, ValueError), ("chunk 128", 128, ValueError),
+    ("heads strided", 256, ValueError),
+    ("B, C strides differ", 256, ValueError),
+    ("position stride", 256, ValueError), ("misaligned", 256, ValueError),
+])
+def test_kernel_checks_refuse_before_any_launch(monkeypatch, name, chunk,
+                                                error):
+    """What the kernels do not take raises in the wrapper's checks; the
+    launch is never reached."""
+    def launch(*args):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(ssd_mod, "_launch", launch)
+    with pytest.raises(error):
+        ssd_mod.check_kernel_layout(**_bad(name), chunk=chunk)
