@@ -542,7 +542,6 @@ def main(argv):
     from ray_tpu_torch.models.common import param_count
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as A
-    from ray_tpu_torch.ops import norm
     from ray_tpu_torch.train.optim import (adamw_lowmem,
                                            warmup_cosine_decay_schedule)
     from ray_tpu_torch.train.step import build_train
@@ -790,11 +789,10 @@ def main(argv):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    A.reset_launch_counts()
-    norm.reset_counts()
+    reset_launches()
     (model, opt_state, step), losses, norms, elapsed = run_steps(
         torch, step_fn, (model, opt_state, step), data, warm, steps)
-    launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
+    launches = launch_counts(A.KERNEL_WRAPPERS)
     general = general_launches(A)
     norm_124m = layer_norm_calls("gpt2-124m", warm + steps, cfg.num_layers)
     print(f"losses {losses}")
@@ -1042,7 +1040,6 @@ def gpt2_774m_phase(torch, A, profile_root=None):
 
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.models.common import param_count
-    from ray_tpu_torch.ops import norm
     from ray_tpu_torch.train.optim import (adamw_lowmem,
                                            warmup_cosine_decay_schedule)
     from ray_tpu_torch.train.step import build_train
@@ -1073,8 +1070,7 @@ def gpt2_774m_phase(torch, A, profile_root=None):
             torch.cuda.synchronize()
             t_init = time.perf_counter() - t0
             torch.cuda.reset_peak_memory_stats()
-            A.reset_launch_counts()
-            norm.reset_counts()
+            reset_launches()
             (model, opt_state, step), losses[policy], _, elapsed = run_steps(
                 torch, step_fn, (model, opt_state, step), data, warm, steps)
         except torch.cuda.OutOfMemoryError:
@@ -1084,8 +1080,7 @@ def gpt2_774m_phase(torch, A, profile_root=None):
             torch.cuda.empty_cache()
             break
         n = warm + steps
-        launches[policy] = {f.__name__: f.launches / n
-                            for f in A.KERNEL_WRAPPERS}
+        launches[policy] = launch_counts(A.KERNEL_WRAPPERS, n)
         launches[policy]["layer_norm"] = layer_norm_calls(
             f"gpt2-774m remat {policy}", n, cfg.num_layers,
             recompute=policy == "mem2")
@@ -1271,7 +1266,7 @@ def ppo_phase(torch, A, dev, profile_root=None):
     require(e < TOL_GAE, "gae on the card")
     require(e_bad > TOL_GAE, "the GAE gate sees a dropped done mask")
 
-    A.reset_launch_counts()
+    reset_launches()
     t0 = time.perf_counter()
     m = algo.iterate()  # eager, then the graph is captured
     torch.cuda.synchronize()
@@ -1293,7 +1288,7 @@ def ppo_phase(torch, A, dev, profile_root=None):
     end.record()
     end.synchronize()
     replay_ms = start.elapsed_time(end)
-    launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
+    launches = launch_counts(A.KERNEL_WRAPPERS)
     print(f"ppo bench: {iters} iterations of {T} x {N} env steps in "
           f"{wall:.4f} s: {steps_s:.1f} env-steps/s; one replayed iteration "
           f"{replay_ms:.4f} ms on CUDA events; K1-K3 launches {launches} "
@@ -1512,7 +1507,7 @@ def rllib_phase(torch, A, dev, root):
     t_phase = time.perf_counter()
     card = smi_line()
     out = {}
-    A.reset_launch_counts()
+    reset_launches()
     for name, cfg, iters in rl_configs():
         t0 = time.perf_counter()
         algo = cfg.build()
@@ -1621,8 +1616,7 @@ def rllib_phase(torch, A, dev, root):
         algo.stop()
         del algo, calls
         torch.cuda.empty_cache()
-    launches = {f.__name__: f.launches
-                for f in A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS}
+    launches = launch_counts(A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS)
     print(f"rllib phase: attention kernel launches {launches} (no attention "
           "on this path)")
     require(all(n == 0 for n in launches.values()),
@@ -2045,7 +2039,7 @@ def offpolicy_phase(torch, A, dev, root):
 
     t_phase = time.perf_counter()
     card = smi_line()
-    A.reset_launch_counts()
+    reset_launches()
     out, parity = {}, {}
     base, paths, behaviour = rl7c_datasets(torch, root)
     print(f"rllib 7c datasets: Pendulum 16 x 1000 uniform steps, CartPole "
@@ -2202,8 +2196,7 @@ def offpolicy_phase(torch, A, dev, root):
                f"{cfg.noise_size}")
         algo.stop()
 
-    launches = {f.__name__: f.launches
-                for f in A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS}
+    launches = launch_counts(A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS)
     print(f"rllib 7c: attention kernel launches {launches} (no attention "
           "on this path)")
     require(all(n == 0 for n in launches.values()),
@@ -2317,10 +2310,10 @@ def serve_phase(torch, A, dev, profile_root=None):
         finally:
             llama.attention_op = causal_op
 
-    A.reset_launch_counts()
+    reset_launches()
     fwd = forward(model)
     torch.cuda.synchronize()
-    k1 = A.flash_fwd.launches
+    k1 = launch_counts([A.flash_fwd])["flash_fwd"]
     print(f"{name} forward [1, {prompt_len}]: K1 launches {k1} (expect "
           f"{cfg.num_layers}); general kernels {general_launches(A)}")
     require(k1 == cfg.num_layers, "K1 launches on the llama forward")
@@ -2669,9 +2662,26 @@ def check_kernels(torch, A, shapes, gen, general=False):
     return worst
 
 
+def reset_launches():
+    """Zeroes the port's launch counts (``_build.reset_launch_counts``)."""
+    from ray_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+
+
+def launch_counts(wrappers, per=1):
+    """{wrapper name: its launches since ``reset_launches``, over
+    ``per``}."""
+    from ray_tpu_torch.ops import _build
+
+    counts = _build.launch_counts()
+    return {f.__name__: counts[f.__name__] / per if per != 1
+            else counts[f.__name__] for f in wrappers}
+
+
 def general_launches(A):
     """Launches of K4-K6 since the counts were last reset."""
-    return sum(f.launches for f in A.GENERAL_WRAPPERS)
+    return sum(launch_counts(A.GENERAL_WRAPPERS).values())
 
 
 def general_timings(torch, A, gen, shape, dtype=None, names=None):
@@ -2907,10 +2917,10 @@ def ssd_phase(torch, gen, ptxas):
     x, dt, A, B, C = ssd_inputs(torch, gen, b, s, h, p, n)
     dy = torch.randn(b, s, h, p, generator=gen, device=gen.device)
     ins = [t.detach().requires_grad_() for t in (x, dt, A, B, C)]
-    ssd.reset_counts()
+    reset_launches()
     y = ssd.ssd(*ins, chunk=q)
     grads = torch.autograd.grad(y, ins, dy)
-    counts = ssd.counts()
+    counts = launch_counts(ssd.KERNEL_WRAPPERS)
     refs = [t.detach().float().requires_grad_() for t in (x, dt, A, B, C)]
     yr = ssd.ssd_reference(*refs, chunk=q)
     want = torch.autograd.grad(yr, refs, dy)
@@ -2969,20 +2979,20 @@ def ssd_phase(torch, gen, ptxas):
 
 
 def layer_norm_calls(label, n, layers=None, recompute=False):
-    """The LayerNorm calls a step over the ``n`` steps since
-    ``norm.reset_counts()``: the forward and backward kernels' launches and
-    the calls that took the plain version. Given ``layers``, requires what
-    a model of plain tensors makes: ln1 and ln2 a layer and lnf, each once
-    forward (twice for ln1 and ln2 where ``recompute``) and once backward,
-    all through the kernels."""
+    """The LayerNorm kernels' launches a step, forward and backward, over
+    the ``n`` steps since ``reset_launches()``. Given ``layers``, requires
+    what a model of plain tensors makes: ln1 and ln2 a layer and lnf, each
+    once forward (twice for ln1 and ln2 where ``recompute``) and once
+    backward, all through the kernels (a call of the plain version would
+    launch nothing)."""
     from ray_tpu_torch.ops import norm
 
-    got = dict(forward=norm.layer_norm_fwd.launches / n,
-               backward=norm.layer_norm_bwd.launches / n,
-               plain=norm.layer_norm.plain_calls / n)
+    fwd, bwd = launch_counts((norm.layer_norm_fwd, norm.layer_norm_bwd),
+                             n).values()
+    got = dict(forward=fwd, backward=bwd)
     expect = None if layers is None else dict(
         forward=(4 if recompute else 2) * layers + 1,
-        backward=2 * layers + 1, plain=0)
+        backward=2 * layers + 1)
     print(f"{label}: LayerNorm calls a step {got}"
           + ("" if expect is None else f" (expect {expect})"))
     if expect is not None:
@@ -3010,13 +3020,12 @@ def c3_phase(torch, A, dev):
     losses, launches = {}, {}
     with full_fp32():
         for name, model in (("cpu", cpu), ("card", card)):
-            A.reset_launch_counts()
+            reset_launches()
             loss = model.loss_fn({"tokens": tokens.to(model.wte.device)})
             loss.backward()
             losses[name] = loss.item()
-            launches[name] = {f.__name__: f.launches
-                              for f in A.GENERAL_WRAPPERS}
-            require(all(f.launches == 0 for f in A.KERNEL_WRAPPERS),
+            launches[name] = launch_counts(A.GENERAL_WRAPPERS)
+            require(sum(launch_counts(A.KERNEL_WRAPPERS).values()) == 0,
                     f"llama-tiny ({name}) launches no Hopper kernel")
     torch.cuda.synchronize()
     e_loss = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
@@ -3065,11 +3074,11 @@ def granite_phase(torch, A, gen):
     q = rand(batch, heads, seq, hd).requires_grad_()
     k, v = (rand(batch, kv, seq, hd).requires_grad_() for _ in range(2))
     do = rand(batch, heads, seq, hd)
-    A.reset_launch_counts()
+    reset_launches()
     ek, ev = expand_kv_heads(k, v, heads, group)
     o = A.attention(q, ek, ev, causal=True, scale=sc)
     o.backward(do)
-    launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
+    launches = launch_counts(A.KERNEL_WRAPPERS)
     require(all(n == 1 for n in launches.values())
             and general_launches(A) == 0,
             f"granite attention: one launch of each of K1-K3, got "
@@ -3124,14 +3133,13 @@ def granite_phase(torch, A, gen):
                            .manual_seed(0))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    A.reset_launch_counts()
-    ssd.reset_counts()
+    reset_launches()
     t0 = time.perf_counter()
     *_, met = step_fn(model, opt_state, step, {"tokens": tokens})
     loss = met["loss"].item()
     step_s = time.perf_counter() - t0
     n_attn = cfg.layer_types.count("attention")
-    step_launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
+    step_launches = launch_counts(A.KERNEL_WRAPPERS)
     expect = {"flash_fwd": 2 * n_attn, "flash_bwd_dkdv": n_attn,
               "flash_bwd_dq": n_attn}
     print(f"granite-4.0-h-small 10-layer cut: {param_count(model)} "
@@ -3151,14 +3159,15 @@ def granite_phase(torch, A, gen):
     ssd_expect = {"chunk_state": 4 * n_mamba, "state_pass": 4 * n_mamba,
                   "chunk_scan": 3 * n_mamba, "chunk_dg": n_mamba,
                   "chunk_bc": 2 * n_mamba}
-    print(f"granite step: scan launches {ssd.counts()} (expect {ssd_expect}"
+    ssd_launches = launch_counts(ssd.KERNEL_WRAPPERS)
+    print(f"granite step: scan launches {ssd_launches} (expect {ssd_expect}"
           f": each of {n_mamba} Mamba layers forward, recomputed and "
           f"backward)")
-    require(ssd.counts() == ssd_expect, "granite scan launch counts")
+    require(ssd_launches == ssd_expect, "granite scan launch counts")
     del model, opt_state, tokens, met
     torch.cuda.empty_cache()
     print(f"phase 3d (granite): {time.perf_counter() - t_phase:.3f} s wall")
-    return dict(launches=step_launches, ssd_launches=ssd.counts(),
+    return dict(launches=step_launches, ssd_launches=ssd_launches,
                 errs={"flash_fwd": e["o"],
                       "flash_bwd_dkdv": max(e["dk"], e["dv"]),
                       "flash_bwd_dq": e["dq"]})
@@ -3195,7 +3204,6 @@ def adafactor_gpt2(torch, A, name, seq, batch, warm, steps,
 
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.models.common import cast_floating, param_count
-    from ray_tpu_torch.ops import norm
     from ray_tpu_torch.train.optim import adafactor
     from ray_tpu_torch.train.step import build_train
 
@@ -3220,12 +3228,11 @@ def adafactor_gpt2(torch, A, name, seq, batch, warm, steps,
     n_params = param_count(model)
     state_b = tensor_bytes(opt_state)
     torch.cuda.reset_peak_memory_stats()
-    A.reset_launch_counts()
-    norm.reset_counts()
+    reset_launches()
     (model, opt_state, step), losses, _, elapsed = run_steps(
         torch, step_fn, (model, opt_state, step), data, warm, steps)
     n = warm + steps
-    launches = {f.__name__: f.launches / n for f in A.KERNEL_WRAPPERS}
+    launches = launch_counts(A.KERNEL_WRAPPERS, n)
     general = general_launches(A)
     label = f"{name} seq {seq} batch {batch}"
     norm_calls = layer_norm_calls(label, n, cfg.num_layers, recompute=True)
@@ -3298,7 +3305,6 @@ def vit_phase(torch, A, profile_root=None):
 
     from ray_tpu_torch.models import vit
     from ray_tpu_torch.models.common import param_count
-    from ray_tpu_torch.ops import norm
     from ray_tpu_torch.train.optim import default_optimizer
     from ray_tpu_torch.train.step import build_train
 
@@ -3318,12 +3324,11 @@ def vit_phase(torch, A, profile_root=None):
     n_params = param_count(model)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    A.reset_launch_counts()
-    norm.reset_counts()
+    reset_launches()
     (model, opt_state, step), losses, _, elapsed = run_steps(
         torch, step_fn, (model, opt_state, step), data, warm, steps)
     n = warm + steps
-    launches = {f.__name__: f.launches / n for f in A.KERNEL_WRAPPERS}
+    launches = launch_counts(A.KERNEL_WRAPPERS, n)
     general = general_launches(A)
     norm_calls = layer_norm_calls("vit-b16", n, cfg.num_layers,
                                   recompute=cfg.remat)
@@ -3468,7 +3473,6 @@ def mesh_phases(torch, A, sched, data, ref, card="cuda", profile_root=None):
     import torch.distributed as dist
 
     from ray_tpu_torch.models import gpt2
-    from ray_tpu_torch.ops import norm
     from ray_tpu_torch.parallel.bootstrap import Bootstrap, InMemoryKV
     from ray_tpu_torch.parallel.mesh import MeshSpec
     from ray_tpu_torch.parallel.sharding import prune_rules_for_mesh
@@ -3500,14 +3504,14 @@ def mesh_phases(torch, A, sched, data, ref, card="cuda", profile_root=None):
             n_params = sum(p.numel() for p in state[0].parameters())
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            A.reset_launch_counts()
-            norm.reset_counts()
+            reset_launches()
             state, losses, norms, elapsed = run_steps(
                 torch, step_fn, state, data, 2, 5)
-            launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
+            launches = launch_counts(A.KERNEL_WRAPPERS)
             general = general_launches(A)
-            # DTensors take the plain version, the MoE layer's local
-            # tensors inside its smap region the kernels: recorded only.
+            # DTensors take the plain version (no launch), the MoE
+            # layer's local tensors inside its smap region the kernels:
+            # recorded only.
             norm_calls = layer_norm_calls(name, 7)
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             rec = mesh_record(torch, gpt2, cfg, name, losses, norms, elapsed,
@@ -4176,12 +4180,14 @@ def _sp4_body(rank, world, store, device, shapes):
             q, k, v, g_o = inputs(shapes["ring"], torch.float32, 11)
             for causal in (True, False):
                 ref = A.mha_reference(q, k, v, causal=causal)
-                A.reset_launch_counts()
+                reset_launches()
                 o, ms = timed(lambda: ring_flash_attention_local(
                     shard(q), shard(k), shard(v), "sp", causal=causal))
                 rec[f"ring_flash_{'causal' if causal else 'full'}"] = dict(
-                    launches=A.flash_fwd_general.launches,
-                    other_launches=sum(f.launches for f in A.KERNEL_WRAPPERS),
+                    launches=launch_counts(
+                        [A.flash_fwd_general])["flash_fwd_general"],
+                    other_launches=sum(
+                        launch_counts(A.KERNEL_WRAPPERS).values()),
                     max_abs_err=rel_err(o, shard(ref)), ms=ms)
                 del ref
             xs = [shard(t).requires_grad_() for t in (q, k, v)]
@@ -4190,7 +4196,7 @@ def _sp4_body(rank, world, store, device, shapes):
                 o = ring_attention_local(*xs, "sp", causal=True)
                 o.backward(shard(g_o))
                 return o
-            A.reset_launch_counts()
+            reset_launches()
             o, ms = timed(ring_step)
             refs = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             ref = A.mha_reference(*refs, causal=True)
@@ -4199,8 +4205,8 @@ def _sp4_body(rank, world, store, device, shapes):
                 rel_err(x.grad, shard(r.grad)) for x, r in zip(xs, refs)]
             rec["ring_einsum"] = dict(
                 max_abs_err=max(errs), errs_o_dq_dk_dv=errs, ms=ms,
-                launches=sum(f.launches for f in A.KERNEL_WRAPPERS
-                             + A.GENERAL_WRAPPERS))
+                launches=sum(launch_counts(
+                    A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS).values()))
             del q, k, v, g_o, xs, refs, ref, o
 
             q, k, v, g_o = inputs(shapes["ulysses"], torch.bfloat16, 12)
@@ -4210,10 +4216,10 @@ def _sp4_body(rank, world, store, device, shapes):
                 o = ulysses_attention_local(*xs, "sp", causal=True)
                 o.backward(shard(g_o))
                 return o
-            A.reset_launch_counts()
+            reset_launches()
             o, ms = timed(ulysses_step)
-            launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS}
-            general = sum(f.launches for f in A.GENERAL_WRAPPERS)
+            launches = launch_counts(A.KERNEL_WRAPPERS)
+            general = sum(launch_counts(A.GENERAL_WRAPPERS).values())
             # The plain attention on the whole tensor in fp32 autograd,
             # as phase 3's autograd check.
             refs = [t.detach().float().requires_grad_() for t in (q, k, v)]
@@ -4437,12 +4443,11 @@ def train_library_phase(torch, A, dev, root):
                     checkpoint_config=CheckpointConfig(num_to_keep=2,
                                                        async_save=True)),
                 resume_from_checkpoint=resume, runtime=InlineRuntime())
-            A.reset_launch_counts()
+            reset_launches()
             t0 = time.perf_counter()
             result = trainer.fit()
             wall = time.perf_counter() - t0
-            launches = {f.__name__: f.launches for f in A.KERNEL_WRAPPERS
-                        + A.GENERAL_WRAPPERS}
+            launches = launch_counts(A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS)
             require(result.ok, f"8b {name}: {result.error}")
             return result, wall, launches
 
@@ -4668,7 +4673,7 @@ def telemetry_phase(torch, A, dev):
     counters = ("tokens_generated", "prefix_hits", "prefix_misses",
                 "prefix_tokens_saved")
     start = {c: getattr(engine, c) for c in counters}
-    A.reset_launch_counts()
+    reset_launches()
     engine.reset_decode_profile()
     traced = []  # (context, handle)
 
@@ -4687,8 +4692,7 @@ def telemetry_phase(torch, A, dev):
     engine.clear_prefix_cache()
     imported = engine.import_session(snap)
     prof = engine.decode_profile()
-    launches = {f.__name__: f.launches
-                for f in A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS}
+    launches = launch_counts(A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS)
     after = llm_series(metrics.registry)
 
     def moved(name, key=()):
@@ -4846,7 +4850,7 @@ def external_phase(torch, A, dev):
     cfg = (DQNConfig().environment(CartPoleSim)
            .rollouts(rollout_fragment_length=EXTERNAL_FRAGMENT)
            .training(learning_starts=EXTERNAL_FRAGMENT).debugging(seed=0))
-    A.reset_launch_counts()
+    reset_launches()
     algo = ExternalDQN(cfg)  # the learner on the card
     worker = algo.workers.local_worker
     sample, batches = worker.sample, []
@@ -4953,8 +4957,7 @@ def external_phase(torch, A, dev):
     server.join(timeout=30)
     require(not server.is_alive(), "9b: the policy server shut down")
     trips_s = sum(calls) / wall
-    launches = {f.__name__: f.launches
-                for f in A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS}
+    launches = launch_counts(A.KERNEL_WRAPPERS + A.GENERAL_WRAPPERS)
     print(f"9b PolicyServerInput on {card}: {EXTERNAL_CLIENTS} clients x "
           f"{EXTERNAL_EPISODES} episodes, {sum(calls)} HTTP round trips in "
           f"{wall:.3f} s = {trips_s:.1f} round trips/s, {served_rows} rows "
@@ -5079,9 +5082,9 @@ def tune_phase(torch, A, dev, root):
 
     def launched_by(run):
         """``run()``'s result and the kernel launches it made."""
-        A.reset_launch_counts()
+        reset_launches()
         result = run()
-        return result, {f.__name__: f.launches for f in wrappers}
+        return result, launch_counts(wrappers)
 
     def require_kernels(what, launches, steps):
         require(all(launches[f.__name__] == cfg.num_layers * steps

@@ -6,10 +6,14 @@ NVIDIA card, each checkout in a process of its own, in the order given.
 
 For A/B runs, give the roots alternately (parent, change, change, parent).
 Each ROOT is a directory holding a ``ray_tpu_torch`` package; its kernels
-are built from its own sources. At the GPT-2 124M shape ([8,12,1024,64]
-bf16 causal) each process measures, for K1 ``flash_fwd``, K2
-``flash_bwd_dkdv``, K3 ``flash_bwd_dq`` and F.scaled_dot_product_attention's
-forward and backward:
+are built from its own sources. Each process measures, for K1
+``flash_fwd``, K2 ``flash_bwd_dkdv``, K3 ``flash_bwd_dq`` and
+F.scaled_dot_product_attention's forward and backward at the GPT-2 124M
+shape ([8,12,1024,64] bf16 causal), the LayerNorm kernels
+(``layer_norm_fwd``, ``layer_norm_bwd``) at gpt2-1.5b's rows and width
+([16384, 1600] bf16) and the scan's forward (``ssd_forward``: its three
+launches and the C B^T product) at Granite's mixer widths (h 128, p 64,
+n 128, chunk 256) over 1024 positions:
 
   - ``ms``: device time per call, torch.profiler (``chip_smoke.time_ms``,
     the same yardstick for every root);
@@ -30,6 +34,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 B, H, S, D = 8, 12, 1024, 64
+LN_ROWS, LN_D = 16384, 1600
+SSD_S, SSD_H, SSD_P, SSD_N, SSD_CHUNK = 1024, 128, 64, 128, 256
 WINDOWS, CALLS = 15, 40
 
 
@@ -57,6 +63,7 @@ def one(root):
 
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.ops import norm, ssd
 
     smoke.require(torch.cuda.is_available(), "no CUDA device")
     smoke.require(os.path.dirname(A.__file__).startswith(
@@ -71,6 +78,19 @@ def one(root):
     delta = (do.float() * o.float()).sum(-1)
     xs = [t.detach().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*xs, is_causal=True)
+    x_ln = torch.randn((LN_ROWS, LN_D), generator=gen, device=dev,
+                       dtype=torch.bfloat16)
+    w_ln = torch.ones(LN_D, device=dev, dtype=torch.bfloat16)
+    b_ln = torch.zeros(LN_D, device=dev, dtype=torch.bfloat16)
+    _, mean, rstd = norm.layer_norm_fwd(x_ln, w_ln, b_ln)
+    hp = SSD_H * SSD_P
+    xbc = torch.randn((1, SSD_S, hp + 2 * SSD_N), generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    x_ssd = xbc[..., :hp].unflatten(-1, (SSD_H, SSD_P))
+    b_ssd, c_ssd = xbc[..., hp:hp + SSD_N], xbc[..., hp + SSD_N:]
+    dt = F.softplus(torch.randn((1, SSD_S, SSD_H), generator=gen,
+                                device=dev) - 1.0)
+    a_ssd = -torch.exp(torch.randn(SSD_H, generator=gen, device=dev))
     calls = {
         "flash_fwd": lambda: A.flash_fwd(q, k, v, True, scale),
         "flash_bwd_dkdv": lambda: A.flash_bwd_dkdv(q, k, v, do, lse, delta,
@@ -81,6 +101,11 @@ def one(root):
                                                            is_causal=True),
         "sdpa_bwd": lambda: torch.autograd.grad(out, xs, do,
                                                 retain_graph=True),
+        "layer_norm_fwd": lambda: norm.layer_norm_fwd(x_ln, w_ln, b_ln),
+        "layer_norm_bwd": lambda: norm.layer_norm_bwd(x_ln, x_ln, w_ln,
+                                                      mean, rstd),
+        "ssd_forward": lambda: ssd.ssd_kernel_forward(
+            x_ssd, dt, a_ssd, b_ssd, c_ssd, SSD_CHUNK),
     }
     warm = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
     t_warm = time.perf_counter() + 1.0

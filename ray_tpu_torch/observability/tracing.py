@@ -20,6 +20,10 @@ port's phases as host ranges, on the profiler's clock beside the device
 activity they launched, and the ring holds them as spans whose
 ``device_ms`` two CUDA events on the stream measure. The spans stay in
 the ring (``Tracer.spans``) for whoever reads them; nothing ships them.
+
+``count`` lets an op count its calls on the trace it runs in, onto the
+trace's outermost open span (the training step's ``train.step``), so that
+no layer above it needs to know the op.
 """
 
 from __future__ import annotations
@@ -299,6 +303,30 @@ def device_span(name: str, where=None, trace: Optional[str] = None):
     if isinstance(where, torch.Tensor):
         where = where.device
     return _DeviceSpanCtx(name, where, trace)
+
+
+def count(counts: Dict[str, int], trace: Optional[str] = None
+          ) -> Optional[str]:
+    """Adds ``counts`` ({attribute: n}) to the attributes of the outermost
+    open span of a trace: ``trace``, else the current thread's. Returns
+    that trace's id, for work the call hands to another thread (autograd's
+    on a card) to count into; None, counting nothing, where no span of it
+    is open."""
+    if not _tracer._open:  # nothing traced anywhere: the untraced step's path
+        return None
+    if trace is None:
+        stack = getattr(_local, "stack", None)
+        if not stack:
+            return None
+        trace = stack[-1].trace_id
+    with _tracer._lock:
+        spans = _tracer._open.get(trace)
+        if not spans:
+            return None
+        attrs = spans[0].attributes
+        for name, n in counts.items():
+            attrs[name] = attrs.get(name, 0) + n
+    return trace
 
 
 # -- context propagation ------------------------------------------------------

@@ -1,16 +1,26 @@
-"""Builds the CUDA sources under ``csrc/`` and loads them with ctypes.
+"""Builds the CUDA sources under ``csrc/``, loads them with ctypes and
+launches their entry points: the one seam between the ops and their
+kernels.
 
 Each ``csrc/<name>.cu`` becomes one shared library with plain C entry
-points (those ``load`` is given), compiled by ``nvcc`` for ``sm_90a`` into
-``ray_tpu_torch/_build/`` on first use. The file name carries a hash of
-the sources and flags, so an edited kernel is rebuilt and an unchanged one
-is loaded as it is. ``build()`` starts one
-``nvcc`` per source, all at once. A failed build raises: nothing falls
-back to the plain versions.
+points, compiled by ``nvcc`` for ``sm_90a`` into ``ray_tpu_torch/_build/``
+on first use. The file name carries a hash of the sources and flags, so an
+edited kernel is rebuilt and an unchanged one is loaded as it is.
+``build()`` starts one ``nvcc`` per source, all at once. A failed build
+raises: nothing falls back to the plain versions.
+
+An op declares its kernels once, in a table ``{library: {entry point:
+argtypes}}`` (the stream last), and calls them through ``launch``. The
+first launch of any entry of a table builds every library of it not built
+yet, at once, and binds their argtypes; later launches find the bound
+entry in a dict. ``launch`` counts each launch under the wrapper's name
+(``launch_counts``, ``reset_launch_counts``). Which version an op runs is
+``on_card``'s rule, the same for every op.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -18,7 +28,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Mapping, Optional, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -29,6 +41,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# Entry point (a C symbol, unique across the libraries) -> its function in
+# a loaded library, argtypes bound, and the positions of its pointer
+# arguments before the stream, where ``launch`` takes a tensor or None.
+_entries: Dict[str, Any] = {}
+_launches: Dict[str, int] = {}
 # nvcc's output of the build of each kernel's current library (ptxas:
 # registers, shared memory and spills of every instantiation), kept beside
 # the library as <library>.log.
@@ -96,22 +113,63 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return seconds
 
 
-def has_library(name: str) -> bool:
-    """Whether kernel ``name``'s library is loaded in this process."""
-    return name in _libs
+def on_card(t: torch.Tensor) -> bool:
+    """The rule every op follows: a CUDA tensor goes to the kernels (which
+    run or raise), any other tensor to the plain version."""
+    return t.device.type == "cuda"
 
 
-def load(name: str, entries) -> ctypes.CDLL:
-    """The built library of kernel ``name``, building it first if needed;
-    each entry point of ``entries`` ({entry point: argtypes}) gets its
-    argtypes and an int result (the launch's ``cudaError_t``)."""
-    lib = _libs.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_library_path(name)))
-        for entry, argtypes in entries.items():
-            fn = getattr(lib, entry)
+def _bind(table: Mapping[str, Mapping[str, Sequence]]) -> None:
+    """Builds the libraries of ``table`` not loaded yet, all at once, loads
+    them, and binds each entry point's argtypes and int result."""
+    todo = [lib for lib in table if lib not in _libs]
+    if todo:
+        build(todo)
+    for lib in todo:
+        so = _libs[lib] = ctypes.CDLL(str(_library_path(lib)))
+        for entry, argtypes in table[lib].items():
+            fn = getattr(so, entry)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return lib
+    for lib, entries in table.items():
+        for entry, argtypes in entries.items():
+            _entries[entry] = (getattr(_libs[lib], entry), [
+                i for i, t in enumerate(argtypes[:-1]) if t is ctypes.c_void_p])
+
+
+def launch(table: Mapping[str, Mapping[str, Sequence]], entry: str,
+           device: torch.device, *args, name: Optional[str] = None) -> None:
+    """Calls C entry point ``entry`` of ``table`` with ``args`` (a tensor
+    or None where the entry takes a pointer, passed as the tensor's
+    pointer or NULL) and the stream: ``device``'s current one on a card,
+    NULL off it (a host build of the sources, as the tests make). Raises
+    ``RuntimeError`` naming ``entry`` and the ``cudaError_t`` it returned,
+    if not 0; else counts one launch of ``name`` (default ``entry``)."""
+    bound = _entries.get(entry)
+    if bound is None:
+        _bind(table)
+        bound = _entries[entry]
+    fn, pointers = bound
+    args = list(args)
+    for i in pointers:
+        if args[i] is not None:
+            args[i] = args[i].data_ptr()
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        err = fn(*args, None)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    key = name or entry
+    _launches[key] = _launches.get(key, 0) + 1
+
+
+def launch_counts() -> collections.Counter:
+    """Launches of each kernel wrapper, by name, since
+    ``reset_launch_counts``; a wrapper not launched reads 0."""
+    return collections.Counter(_launches)
+
+
+def reset_launch_counts() -> None:
+    _launches.clear()

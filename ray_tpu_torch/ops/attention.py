@@ -3,9 +3,10 @@
 Counterpart of the JAX package's ``ops/attention.py``. Shapes: q
 ``[B, H, Sq, D]``, k/v ``[B, H, Sk, D]``; lse is fp32 ``[B, H, Sq]``.
 
-Six kernels, each with a plain PyTorch version beside it and a launch
-count (``<wrapper>.launches``). The Hopper kernels (``KERNEL_WRAPPERS``:
-TMA, mbarriers and wgmma) take bf16 or fp16 at head_dim 64 or 128:
+Six kernels, each with a plain PyTorch version beside it, launched and
+counted under the wrapper's name through ``_build.launch``. The Hopper
+kernels (``KERNEL_WRAPPERS``: TMA, mbarriers and wgmma) take bf16 or fp16
+at head_dim 64 or 128:
 
   - ``flash_fwd`` (csrc/flash_fwd.cu): o and lse; plain version
     ``mha_reference_with_lse``;
@@ -20,11 +21,11 @@ own body: fp32, bf16 or fp16 at any head_dim from 1 to 256.
 ``flash_fwd_general``, ``flash_bwd_dkdv_general`` and
 ``flash_bwd_dq_general`` (csrc/*_general.cu) have the same plain versions.
 
-A wrapper runs the plain version only for tensors on the CPU. For any
-other tensor it launches its kernel or raises: on a dtype or head_dim its
-kernel does not take, non-contiguous or (Hopper) misaligned input, or a
-kernel that cannot be built. The kernels mask ragged Sq and Sk
-themselves, so every such shape goes to them.
+A wrapper runs the plain version for tensors off the card
+(``_build.on_card``). For a CUDA tensor it launches its kernel or raises:
+on a dtype or head_dim its kernel does not take, non-contiguous or
+(Hopper) misaligned input, or a kernel that cannot be built. The kernels
+mask ragged Sq and Sk themselves, so every such shape goes to them.
 
 The entry points (``flash_attention``, ``attention``,
 ``attention_with_lse``) pick the kernels from the dtype and the head_dim
@@ -44,10 +45,26 @@ from . import _build
 
 _NEG_INF = -1e30
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The kernels' C entry points, one a library of the same name; each group
+# is built at once on its first launch.
+_HOPPER = {
+    "flash_fwd": {"flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P]},
+    "flash_bwd_dkdv": {"flash_bwd_dkdv": [_P] * 6 + [_I] + [_P] * 2
+                       + [_I] * 6 + [_F, _I, _P]},
+    "flash_bwd_dq": {"flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _P]},
+}
+_GENERAL = {
+    "flash_fwd_general": {
+        "flash_fwd_general": [_P] * 5 + [_I] * 6 + [_F, _I, _P]},
+    "flash_bwd_dkdv_general": {
+        "flash_bwd_dkdv_general": [_P] * 8 + [_I] * 6 + [_F, _I, _P]},
+    "flash_bwd_dq_general": {
+        "flash_bwd_dq_general": [_P] * 7 + [_I] * 6 + [_F, _I, _P]},
+}
 
 
 # ---------------------------------------------------------------------------
-# Plain versions (the CPU path, and what the kernels are held against).
+# Plain versions (off the card, and what the kernels are held against).
 # ---------------------------------------------------------------------------
 
 def _scores(q, k, causal: bool, scale: float, q_offset: int = 0):
@@ -130,8 +147,6 @@ def hopper_takes(dtype: torch.dtype, head_dim: int) -> bool:
 def _check(q, k, v, do=None, general: bool = False) -> None:
     """Raises on what the kernels (the general ones with ``general``) do
     not take."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash kernels run on CUDA, got {q.device}")
     if q.ndim != 4:
         raise ValueError(f"flash kernels take [B,H,S,D], got "
                          f"{tuple(q.shape)}")
@@ -160,26 +175,6 @@ def _check(q, k, v, do=None, general: bool = False) -> None:
             raise ValueError("flash kernels need 16-byte aligned tensors")
 
 
-def _kernel(name: str, argtypes, *tensors):
-    """The C entry point of kernel ``name`` (built on first use) after the
-    operands are checked."""
-    fn = getattr(_build.load(name, {name: argtypes}), name)
-    _check(*tensors, general=name.endswith("_general"))
-    return fn
-
-
-def _launch(fn, *args) -> None:
-    with torch.cuda.device(args[0].device):
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args], _stream(args[0]))
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _stats(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """lse or delta as the kernels read them: contiguous fp32 [B,H,Sq]."""
     if x.dtype != torch.float32 or x.shape != q.shape[:3]:
@@ -189,16 +184,17 @@ def _stats(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def flash_fwd(q, k, v, causal: bool, scale: float):
-    """K1: (o, lse). Plain version for CPU tensors, the kernel otherwise."""
-    if q.device.type == "cpu":
+    """K1: (o, lse). The kernel for CUDA tensors, the plain version
+    otherwise."""
+    if not _build.on_card(q):
         return mha_reference_with_lse(q, k, v, causal=causal, scale=scale)
-    fn = _kernel("flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _I, _P], q, k, v)
+    _check(q, k, v)
     b, h, sq, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
-    _launch(fn, q, k, v, o, lse, b, h, sq, k.shape[2], d, int(causal),
-            float(scale), int(q.dtype == torch.bfloat16))
-    flash_fwd.launches += 1
+    _build.launch(_HOPPER, "flash_fwd", q.device, q, k, v, o, lse, b, h, sq,
+                  k.shape[2], d, int(causal), float(scale),
+                  int(q.dtype == torch.bfloat16))
     return o, lse
 
 
@@ -215,99 +211,86 @@ def _stats_rows(x: torch.Tensor, q: torch.Tensor) -> Tuple[torch.Tensor, int]:
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """K2: (dk, dv). Plain version for CPU tensors, the kernel otherwise."""
-    if q.device.type == "cpu":
+    """K2: (dk, dv). The kernel for CUDA tensors, the plain version
+    otherwise."""
+    if not _build.on_card(q):
         return flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal,
                                         scale)
-    fn = _kernel("flash_bwd_dkdv", [_P] * 6 + [_I] + [_P] * 2 + [_I] * 6
-                 + [_F, _I, _P], q, k, v, do)
+    _check(q, k, v, do)
     b, h, sq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lse_rows, ld = _stats_rows(lse, q)
     delta_rows, _ = _stats_rows(delta, q)
-    _launch(fn, q, k, v, do, lse_rows, delta_rows, ld, dk, dv, b, h, sq,
-            k.shape[2], d, int(causal), float(scale),
-            int(q.dtype == torch.bfloat16))
-    flash_bwd_dkdv.launches += 1
+    _build.launch(_HOPPER, "flash_bwd_dkdv", q.device, q, k, v, do, lse_rows,
+                  delta_rows, ld, dk, dv, b, h, sq, k.shape[2], d,
+                  int(causal), float(scale), int(q.dtype == torch.bfloat16))
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """K3: dq. Plain version for CPU tensors, the kernel otherwise."""
-    if q.device.type == "cpu":
+    """K3: dq. The kernel for CUDA tensors, the plain version otherwise."""
+    if not _build.on_card(q):
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
-    fn = _kernel("flash_bwd_dq", [_P] * 7 + [_I] * 6 + [_F, _I, _P],
-                 q, k, v, do)
+    _check(q, k, v, do)
     b, h, sq, d = q.shape
     dq = torch.empty_like(q)
-    _launch(fn, q, k, v, do, _stats(lse, q), _stats(delta, q), dq, b, h, sq,
-            k.shape[2], d, int(causal), float(scale),
-            int(q.dtype == torch.bfloat16))
-    flash_bwd_dq.launches += 1
+    _build.launch(_HOPPER, "flash_bwd_dq", q.device, q, k, v, do,
+                  _stats(lse, q), _stats(delta, q), dq, b, h, sq, k.shape[2],
+                  d, int(causal), float(scale),
+                  int(q.dtype == torch.bfloat16))
     return dq
 
 
 def flash_fwd_general(q, k, v, causal: bool, scale: float):
-    """K4: (o, lse) for what K1 does not take. Plain version for CPU
-    tensors, the kernel otherwise."""
-    if q.device.type == "cpu":
+    """K4: (o, lse) for what K1 does not take. The kernel for CUDA
+    tensors, the plain version otherwise."""
+    if not _build.on_card(q):
         return mha_reference_with_lse(q, k, v, causal=causal, scale=scale)
-    fn = _kernel("flash_fwd_general", [_P] * 5 + [_I] * 6 + [_F, _I, _P],
-                 q, k, v)
+    _check(q, k, v, general=True)
     b, h, sq, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
-    _launch(fn, q, k, v, o, lse, b, h, sq, k.shape[2], d, int(causal),
-            float(scale), _DTYPE_CODE[q.dtype])
-    flash_fwd_general.launches += 1
+    _build.launch(_GENERAL, "flash_fwd_general", q.device, q, k, v, o, lse,
+                  b, h, sq, k.shape[2], d, int(causal), float(scale),
+                  _DTYPE_CODE[q.dtype])
     return o, lse
 
 
 def flash_bwd_dkdv_general(q, k, v, do, lse, delta, causal: bool,
                            scale: float):
-    """K5: (dk, dv) for what K2 does not take. Plain version for CPU
-    tensors, the kernel otherwise."""
-    if q.device.type == "cpu":
+    """K5: (dk, dv) for what K2 does not take. The kernel for CUDA
+    tensors, the plain version otherwise."""
+    if not _build.on_card(q):
         return flash_bwd_dkdv_reference(q, k, v, do, lse, delta, causal,
                                         scale)
-    fn = _kernel("flash_bwd_dkdv_general", [_P] * 8 + [_I] * 6
-                 + [_F, _I, _P], q, k, v, do)
+    _check(q, k, v, do, general=True)
     b, h, sq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(fn, q, k, v, do, _stats(lse, q), _stats(delta, q), dk, dv, b, h,
-            sq, k.shape[2], d, int(causal), float(scale),
-            _DTYPE_CODE[q.dtype])
-    flash_bwd_dkdv_general.launches += 1
+    _build.launch(_GENERAL, "flash_bwd_dkdv_general", q.device, q, k, v, do,
+                  _stats(lse, q), _stats(delta, q), dk, dv, b, h, sq,
+                  k.shape[2], d, int(causal), float(scale),
+                  _DTYPE_CODE[q.dtype])
     return dk, dv
 
 
 def flash_bwd_dq_general(q, k, v, do, lse, delta, causal: bool,
                          scale: float):
-    """K6: dq for what K3 does not take. Plain version for CPU tensors, the
-    kernel otherwise."""
-    if q.device.type == "cpu":
+    """K6: dq for what K3 does not take. The kernel for CUDA tensors, the
+    plain version otherwise."""
+    if not _build.on_card(q):
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
-    fn = _kernel("flash_bwd_dq_general", [_P] * 7 + [_I] * 6 + [_F, _I, _P],
-                 q, k, v, do)
+    _check(q, k, v, do, general=True)
     b, h, sq, d = q.shape
     dq = torch.empty_like(q)
-    _launch(fn, q, k, v, do, _stats(lse, q), _stats(delta, q), dq, b, h, sq,
-            k.shape[2], d, int(causal), float(scale), _DTYPE_CODE[q.dtype])
-    flash_bwd_dq_general.launches += 1
+    _build.launch(_GENERAL, "flash_bwd_dq_general", q.device, q, k, v, do,
+                  _stats(lse, q), _stats(delta, q), dq, b, h, sq, k.shape[2],
+                  d, int(causal), float(scale), _DTYPE_CODE[q.dtype])
     return dq
 
 
 KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dkdv, flash_bwd_dq)
 GENERAL_WRAPPERS = (flash_fwd_general, flash_bwd_dkdv_general,
                     flash_bwd_dq_general)
-for _fn in KERNEL_WRAPPERS + GENERAL_WRAPPERS:
-    _fn.launches = 0
-
-
-def reset_launch_counts() -> None:
-    """Zero every kernel's launch count."""
-    for fn in KERNEL_WRAPPERS + GENERAL_WRAPPERS:
-        fn.launches = 0
 
 
 def kernels_for(dtype: torch.dtype, head_dim: int):
@@ -368,7 +351,7 @@ def flash_attention(q, k, v, causal: bool = True,
 def attention(q, k, v, causal: bool = True, impl: str = "auto",
               scale: Optional[float] = None):
     """Dispatch: 'flash' | 'auto' (the kernels for CUDA tensors, their
-    plain versions on the CPU) | 'reference' (plain autograd attention)."""
+    plain versions off the card) | 'reference' (plain autograd attention)."""
     if impl == "reference":
         return mha_reference(q, k, v, causal=causal, scale=scale)
     if impl not in ("auto", "flash"):

@@ -45,8 +45,7 @@
 //     words for TM TN FMAs, 12 for 32 at 4 x 8, so the SM's 32 words a
 //     cycle of shared memory cap both products at 2/3 of the FMA rate.
 //     8 x 8 micro-tiles would lift that, but with this layout they take
-//     255 registers, spill, and measured twice as slow
-//     (general_variants.py).
+//     255 registers, spill, and measured twice as slow on an H100.
 // Copies run by cp.async (16 bytes where the rows and pointers allow, 4
 // otherwise, plain loads for 16-bit inputs at odd head dims) into one
 // buffer each for K and V, staggered: V's tile t lands while S is

@@ -5,7 +5,7 @@ plain version beside them.
 variance) and returns x's dtype. For a CUDA tensor that is not a DTensor
 it runs ``_LayerNorm``: the forward kernel ``layer_norm_fwd`` and, through
 autograd, the backward kernel ``layer_norm_bwd`` (csrc/layer_norm.cu), or
-raises; nothing falls back. For the rest, a tensor on the CPU or a
+raises; nothing falls back. For the rest, a tensor off the card or a
 DTensor (``build_sharded_train`` outside an ``smap`` region), it runs the
 plain version, ``layer_norm_reference``, the composite the models have
 always used.
@@ -17,10 +17,14 @@ a row and the vector width are chosen from the width and the dtype
 by element, and as many warps a row as the row's elements need. Widths up
 to ``MAX_WIDTH``.
 
-Counts, over the whole process: ``layer_norm_fwd.launches`` and
-``layer_norm_bwd.launches`` (one a call; a backward call launches the rows
-kernel and the column sums), and ``layer_norm.plain_calls``, the calls
-that took the plain version (``counts``, ``reset_counts``).
+Each call is counted on the trace it runs in (``tracing.count``, onto the
+trace's outermost open span, such as ``train.step``): a kernel call forward
+and one backward add to ``norm_kernel_calls``, a call of the plain version
+to ``norm_plain_calls``; the first count puts both attributes on the span.
+The backward, on autograd's thread on a card, counts into the trace its
+forward kept. Launches are counted as every kernel's are
+(``_build.launch_counts``: ``layer_norm_fwd`` and ``layer_norm_bwd``, one a
+call; a backward call launches the rows kernel and the column sums).
 """
 
 from __future__ import annotations
@@ -32,14 +36,18 @@ from typing import Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..observability import tracing
 from . import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_ARGTYPES = {
+_ENTRIES = {"layer_norm": {
     "layer_norm_fwd": [_P] * 6 + [_I] * 4 + [_F, _I, _I, _P],
     "layer_norm_bwd": [_P] * 9 + [_I] * 7 + [_P],
-}
+}}
+_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# What one call adds to its trace's counts.
+_KERNEL_CALL = {"norm_kernel_calls": 1, "norm_plain_calls": 0}
+_PLAIN_CALL = {"norm_kernel_calls": 0, "norm_plain_calls": 1}
 # As csrc/layer_norm.cu: threads a block, elements of x a thread holds
 # forward and backward, and the backward's resident blocks an SM (its
 # __launch_bounds__).
@@ -93,16 +101,6 @@ def _check(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> None:
                              f"{x.device}")
 
 
-def _launch(name: str, *args) -> None:
-    fn = getattr(_build.load("layer_norm", _ARGTYPES), name)
-    dev = args[0].device
-    with torch.cuda.device(dev):
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
-                   for a in args], torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -119,10 +117,9 @@ def layer_norm_fwd(x, scale, bias, eps: float = 1e-5):
     if rows:
         vec, row_threads = _plan(d, x.dtype, FWD_ELEMS, (x, y),
                                  (scale, bias))
-        _launch("layer_norm_fwd", x, scale, bias, y, mean, rstd, rows, d,
-                row_threads, vec, float(eps), _CODE[x.dtype],
-                _CODE[scale.dtype])
-        layer_norm_fwd.launches += 1
+        _build.launch(_ENTRIES, "layer_norm_fwd", x.device, x, scale, bias,
+                      y, mean, rstd, rows, d, row_threads, vec, float(eps),
+                      _CODE[x.dtype], _CODE[scale.dtype])
     return y, mean, rstd
 
 
@@ -144,19 +141,20 @@ def layer_norm_bwd(dy, x, scale, mean, rstd):
                  BWD_BLOCKS_PER_SM * _sms(x.device.index))
     partial = torch.empty((2, blocks, d), device=x.device,
                           dtype=torch.float32)
-    _launch("layer_norm_bwd", dy, x, scale, mean, rstd, dx, partial, dscale,
-            dbias, rows, d, row_threads, vec, blocks, _CODE[x.dtype],
-            _CODE[scale.dtype])
-    layer_norm_bwd.launches += 1
+    _build.launch(_ENTRIES, "layer_norm_bwd", x.device, dy, x, scale, mean,
+                  rstd, dx, partial, dscale, dbias, rows, d, row_threads, vec,
+                  blocks, _CODE[x.dtype], _CODE[scale.dtype])
     return dx, dscale, dbias
 
 
 class _LayerNorm(torch.autograd.Function):
     """The forward kernel; saves x, scale, mean and rstd for the backward
-    kernel."""
+    kernel, and the trace the forward counted into for the backward's
+    count."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps: float):
+        ctx.trace = tracing.count(_KERNEL_CALL)
         shape = x.shape
         x2 = x.reshape(-1, shape[-1]).contiguous()
         y, mean, rstd = layer_norm_fwd(x2, scale, bias, eps)
@@ -167,6 +165,8 @@ class _LayerNorm(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
+        if ctx.trace is not None:
+            tracing.count(_KERNEL_CALL, ctx.trace)
         x2, scale, mean, rstd = ctx.saved_tensors
         dx, dscale, dbias = layer_norm_bwd(
             dy.reshape(x2.shape).contiguous(), x2, scale, mean, rstd)
@@ -174,8 +174,9 @@ class _LayerNorm(torch.autograd.Function):
 
 
 def _takes_kernels(*tensors) -> bool:
-    """CUDA tensors other than DTensors."""
-    if tensors[0].device.type != "cuda":
+    """``_build.on_card``, except for DTensors (the one exception: they
+    take the composite)."""
+    if not _build.on_card(tensors[0]):
         return False
     from torch.distributed.tensor import DTensor
 
@@ -184,27 +185,14 @@ def _takes_kernels(*tensors) -> bool:
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
     """LayerNorm over x's last dimension in fp32, returned in x's dtype:
-    the kernels for CUDA tensors, the plain version for the rest (CPU
-    tensors, DTensors). Scale and bias of another dtype than x's or fp32 go to the
-    kernels in fp32."""
+    the kernels for CUDA tensors, the plain version for the rest (tensors
+    off the card, DTensors). Scale and bias of another dtype than x's or
+    fp32 go to the kernels in fp32."""
     if not _takes_kernels(x, scale, bias):
-        layer_norm.plain_calls += 1
+        tracing.count(_PLAIN_CALL)
         return layer_norm_reference(x, scale, bias, eps)
     if scale.dtype not in (x.dtype, torch.float32) or bias.dtype != \
             scale.dtype:
         scale, bias = scale.float(), bias.float()
     return _LayerNorm.apply(x, scale, bias, eps)
 
-
-def counts() -> Tuple[int, int]:
-    """(kernel calls, forward and backward; plain calls)."""
-    return (layer_norm_fwd.launches + layer_norm_bwd.launches,
-            layer_norm.plain_calls)
-
-
-def reset_counts() -> None:
-    layer_norm_fwd.launches = layer_norm_bwd.launches = 0
-    layer_norm.plain_calls = 0
-
-
-reset_counts()

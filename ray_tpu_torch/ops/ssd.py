@@ -25,8 +25,8 @@ that is a multiple of 8, as the mixer's split leaves them), dt and A in
 fp32, and the (p, n, chunk) of ``KERNEL_SHAPES`` only. What crosses
 chunks is each chunk's fp32 ``[p, n]`` state a head; nothing of size
 chunk x chunk a head is kept or written, and the forward keeps nothing
-but its inputs for the backward. Launches are counted on each kernel's
-wrapper (``chunk_state.launches``, ...; ``counts``, ``reset_counts``).
+but its inputs for the backward. Launches are counted under each kernel's
+wrapper (``chunk_state``, ...; ``_build.launch_counts``).
 
 Any other tensor takes ``_SSD``, the plain version (``ssd_reference`` on
 any device): everything fp32, its forward and its backward each over
@@ -189,72 +189,66 @@ class _SSD(torch.autograd.Function):
 
 # -- the kernels --------------------------------------------------------------
 
-_LIBS = {"ssd_state": "ssd_state_launch", "ssd_scan": "ssd_scan_launch",
-         "ssd_grad": "ssd_grad_launch"}
 # The entry points' pointers, in order (csrc/ssd.cuh, RTT_SSD_ARGS).
 _FIELDS = ("x", "B", "C", "dt", "A", "dy", "cs", "st", "ent", "y", "ddec",
            "dx", "ddt", "dA", "dG", "out", "G")
 _I, _P, _L = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-_ARGTYPES = [_I, _I] + [_P] * len(_FIELDS) + [_L, _L] + [_I] * 7 + [_P]
+_ARGS = [_I, _I] + [_P] * len(_FIELDS) + [_L, _L] + [_I] * 7 + [_P]
+# One entry point a library, all three built at once on the first launch.
+_ENTRIES = {"ssd_state": {"ssd_state_launch": _ARGS},
+            "ssd_scan": {"ssd_scan_launch": _ARGS},
+            "ssd_grad": {"ssd_grad_launch": _ARGS}}
 # Elements of a (head, batch row)'s states a state_pass block takes.
 PASS_SLICE = 512
 
 
-def _launch(lib: str, kernel: int, mode: int, t: Dict[str, torch.Tensor],
-            x: torch.Tensor, B: torch.Tensor, chunk: int) -> None:
-    """One launch of a kernel of library ``lib`` on x's device's current
-    stream: the tensors ``t`` by field name (missing ones NULL), the shapes
-    and strides from x and B."""
-    if not _build.has_library(lib):
-        _build.build(list(_LIBS))  # all three at once, on the first call
-    fn = getattr(_build.load(lib, {_LIBS[lib]: _ARGTYPES}), _LIBS[lib])
+def _dims(x: torch.Tensor, B: torch.Tensor, chunk: int) -> list:
+    """What every launch of one call passes after the pointers: x's and
+    B's position strides, b, S, h, p, n and the chunk (taken once a call:
+    each shape or stride read costs the host ~0.3 us)."""
     b, s, h, p = x.shape
-    n = B.shape[-1]
+    return [x.stride(1), B.stride(1), b, s, h, p, B.shape[-1], chunk]
+
+
+def _args(kernel: int, mode: int, t: Dict[str, torch.Tensor],
+          dims: list) -> list:
+    """An entry point's arguments but the stream: the kernel and its mode,
+    the tensors ``t`` by field name (missing ones NULL), ``dims`` and the
+    parts of ``ddec``."""
     parts = t["ddec"].shape[-1] if "ddec" in t else 0
-    ptrs = [t[f].data_ptr() if f in t else None for f in _FIELDS]
-    if x.device.type == "cuda":
-        with torch.cuda.device(x.device):
-            err = fn(kernel, mode, *ptrs, x.stride(1), B.stride(1), b, s, h,
-                     p, n, chunk, parts,
-                     torch.cuda.current_stream(x.device).cuda_stream)
-    else:  # a host build of the sources (the tests')
-        err = fn(kernel, mode, *ptrs, x.stride(1), B.stride(1), b, s, h, p,
-                 n, chunk, parts, None)
-    if err != 0:
-        raise RuntimeError(f"{lib} kernel {kernel} launch failed: "
-                           f"cudaError {err}")
+    return [kernel, mode, *[t.get(f) for f in _FIELDS], *dims, parts]
 
 
-def chunk_state(fwd: bool, t, x, B, chunk) -> None:
+def chunk_state(fwd: bool, t, dims) -> None:
     """Forward: the chunks' cumulative sums ``cs`` and states ``st``;
     backward: each chunk's dy term of its entering state's gradient."""
-    _launch("ssd_state", 0, int(fwd), t, x, B, chunk)
-    chunk_state.launches += 1
+    _build.launch(_ENTRIES, "ssd_state_launch", t["x"].device,
+                  *_args(0, int(fwd), t, dims), name="chunk_state")
 
 
-def state_pass(fwd: bool, t, x, B, chunk) -> None:
+def state_pass(fwd: bool, t, dims) -> None:
     """In place over ``st``: the states entering each chunk (forward), the
     gradients of the states leaving each chunk and ``ddec`` (backward)."""
-    _launch("ssd_state", 1, int(fwd), t, x, B, chunk)
-    state_pass.launches += 1
+    _build.launch(_ENTRIES, "ssd_state_launch", t["x"].device,
+                  *_args(1, int(fwd), t, dims), name="state_pass")
 
 
-def chunk_scan(fwd: bool, t, x, B, chunk) -> None:
+def chunk_scan(fwd: bool, t, dims) -> None:
     """Forward: y. Backward: dx, ddt and dA's part of each chunk."""
-    _launch("ssd_scan", 0, int(fwd), t, x, B, chunk)
-    chunk_scan.launches += 1
+    _build.launch(_ENTRIES, "ssd_scan_launch", t["x"].device,
+                  *_args(0, int(fwd), t, dims), name="chunk_scan")
 
 
-def chunk_dg(t, x, B, chunk) -> None:
+def chunk_dg(t, dims) -> None:
     """The gradient of each chunk's C B^T, summed over the heads."""
-    _launch("ssd_grad", 0, 0, t, x, B, chunk)
-    chunk_dg.launches += 1
+    _build.launch(_ENTRIES, "ssd_grad_launch", t["x"].device,
+                  *_args(0, 0, t, dims), name="chunk_dg")
 
 
-def chunk_bc(dc: bool, t, x, B, chunk) -> None:
+def chunk_bc(dc: bool, t, dims) -> None:
     """The state terms of dC (``dc``) or of dB, summed over the heads."""
-    _launch("ssd_grad", 1, int(dc), t, x, B, chunk)
-    chunk_bc.launches += 1
+    _build.launch(_ENTRIES, "ssd_grad_launch", t["x"].device,
+                  *_args(1, int(dc), t, dims), name="chunk_bc")
 
 
 KERNEL_WRAPPERS = (chunk_state, state_pass, chunk_scan, chunk_dg, chunk_bc)
@@ -328,9 +322,10 @@ def ssd_kernel_forward(x, dt, A, B, C, chunk: int):
     y = torch.empty(b, s, h, p, **f32)
     t = dict(x=x, B=B, C=C, dt=dt, A=A, cs=cs, st=st, y=y,
              G=_chunk_products(C, B, chunk))
-    chunk_state(True, t, x, B, chunk)
-    state_pass(True, t, x, B, chunk)
-    chunk_scan(True, t, x, B, chunk)
+    dims = _dims(x, B, chunk)
+    chunk_state(True, t, dims)
+    state_pass(True, t, dims)
+    chunk_scan(True, t, dims)
     return y, cs, st
 
 
@@ -344,8 +339,9 @@ def ssd_kernel_backward(dy, x, dt, A, B, C, chunk: int):
     cs = torch.empty(b, h, c, chunk, **f32)
     ent = torch.empty(b, h, c, p, n, **f32)
     fwd = dict(x=x, B=B, C=C, dt=dt, A=A, cs=cs, st=ent)
-    chunk_state(True, fwd, x, B, chunk)
-    state_pass(True, fwd, x, B, chunk)
+    dims = _dims(x, B, chunk)
+    chunk_state(True, fwd, dims)
+    state_pass(True, fwd, dims)
     dy = dy.float().contiguous()
     st = torch.empty(b, h, c, p, n, **f32)
     ddec = torch.empty(b, h, c, p * n // PASS_SLICE, **f32)
@@ -358,14 +354,14 @@ def ssd_kernel_backward(dy, x, dt, A, B, C, chunk: int):
     t = dict(x=x, B=B, C=C, dt=dt, A=A, dy=dy, cs=cs, st=st, ent=ent,
              ddec=ddec, dx=dx, ddt=ddt, dA=dA, dG=dG,
              G=_chunk_products(B, C, chunk))
-    chunk_state(False, t, x, B, chunk)
-    state_pass(False, t, x, B, chunk)
-    chunk_scan(False, t, x, B, chunk)
+    chunk_state(False, t, dims)
+    state_pass(False, t, dims)
+    chunk_scan(False, t, dims)
     del t["G"]
-    chunk_bc(True, dict(t, out=dc), x, B, chunk)
+    chunk_bc(True, dict(t, out=dc), dims)
     del t["ent"], ent  # its last reader
-    chunk_bc(False, dict(t, out=db), x, B, chunk)
-    chunk_dg(t, x, B, chunk)
+    chunk_bc(False, dict(t, out=db), dims)
+    chunk_dg(t, dims)
     Bc, Cc = _chunked(B.float(), chunk), _chunked(C.float(), chunk)
     dc = torch.baddbmm(dc.view(b * c, chunk, n), dG.view(b * c, chunk, chunk),
                        Bc.view(b * c, chunk, n))
@@ -407,7 +403,7 @@ def ssd(x, dt, A, B, C, chunk: int = 256):
     if B.dim() != 3 or C.shape != B.shape:
         raise ValueError(f"B and C must be [b, S, n] (one group), got "
                          f"{tuple(B.shape)} and {tuple(C.shape)}")
-    if x.device.type == "cuda":
+    if _build.on_card(x):
         check_kernel_inputs(x, dt, A, B, C, chunk)
         return _KernelSSD.apply(x, dt, A, B, C, chunk)
     return _SSD.apply(x, dt, A, B, C, chunk)
@@ -419,16 +415,3 @@ def ssd_reference(x, dt, A, B, C, chunk: int = 256):
         raise ValueError(f"B and C must be [b, S, n] (one group), got "
                          f"{tuple(B.shape)} and {tuple(C.shape)}")
     return _SSD.apply(x, dt, A, B, C, chunk)
-
-
-def counts() -> Dict[str, int]:
-    """Launches of each kernel since ``reset_counts``."""
-    return {f.__name__: f.launches for f in KERNEL_WRAPPERS}
-
-
-def reset_counts() -> None:
-    for f in KERNEL_WRAPPERS:
-        f.launches = 0
-
-
-reset_counts()

@@ -25,13 +25,11 @@ update (``_init_state``, ``_apply_updates``).
 Each step of either is one trace of device spans
 (``observability.tracing.device_span``), recorded while the tracer is
 enabled or a torch profiler records: ``train.step`` (attributes ``step``,
-``tokens`` and, on a card, the allocator's ``reserved_bytes`` at its end
-and the step's LayerNorm calls, ``norm_kernel_calls`` through the kernels,
-forward and backward, and ``norm_plain_calls`` through the plain version)
-over ``train.forward`` (the loss), ``train.backward`` (the backward with
-any remat recompute, and on a mesh each gradient brought to its
-parameter's layout) and ``train.optimizer`` (the global norm and
-``_apply_updates``).
+``tokens``, on a card the allocator's ``reserved_bytes`` at its end, and
+whatever the ops count onto their trace, ``tracing.count``) over
+``train.forward`` (the loss), ``train.backward`` (the backward with any
+remat recompute, and on a mesh each gradient brought to its parameter's
+layout) and ``train.optimizer`` (the global norm and ``_apply_updates``).
 """
 
 from __future__ import annotations
@@ -43,7 +41,6 @@ import torch.nn as nn
 
 from ..device import default_device
 from ..observability import tracing
-from ..ops import norm
 from ..parallel.sharding import (Rules, distribute, place,
                                  prune_rules_for_mesh, spec_for, use_mesh)
 from .optim import (GradientTransformation, default_optimizer, global_norm,
@@ -76,7 +73,6 @@ def build_train(init_fn: Callable[[torch.Generator], nn.Module],
 
     def step(model: nn.Module, opt_state: Any, step: int, batch: Dict):
         with tracing.device_span("train.step", dev) as root:
-            norm_counts = norm.counts()
             params = list(model.parameters())
             batch = {k: v.to(dev) for k, v in batch.items()}
             with tracing.device_span("train.forward", dev):
@@ -91,28 +87,20 @@ def build_train(init_fn: Callable[[torch.Generator], nn.Module],
                 opt_state = _apply_updates(optimizer, opt_state, params,
                                            grads, master_fp32)
             if root is not None:
-                _annotate(root, step, batch, dev, norm_counts)
+                _annotate(root, step, batch, dev)
         return model, opt_state, step + 1, {"loss": loss.detach(),
                                              "grad_norm": gnorm}
 
     return init, step
 
 
-def _annotate(root, step: int, batch: Dict, dev, norm_counts) -> None:
-    """The ``train.step`` span's attributes, at the step's end;
-    ``norm_counts`` is ``norm.counts()`` at its start. Those counters are
-    the process's, so the LayerNorm calls are the step's own while one
-    step runs at a time; steps that overlap in threads count each other's.
-    (Within a step the forward's calls and the backward's, on autograd's
-    thread, do not overlap.)"""
+def _annotate(root, step: int, batch: Dict, dev) -> None:
+    """The ``train.step`` span's own attributes, at the step's end."""
     root.attributes["step"] = step
     if "tokens" in batch:
         root.attributes["tokens"] = batch["tokens"].numel()
     if dev.type == "cuda":
         root.attributes["reserved_bytes"] = torch.cuda.memory_reserved(dev)
-        kernel, plain = (n - n0 for n, n0 in zip(norm.counts(), norm_counts))
-        root.attributes["norm_kernel_calls"] = kernel
-        root.attributes["norm_plain_calls"] = plain
 
 
 def _init_state(model: nn.Module, optimizer: GradientTransformation,
@@ -210,7 +198,6 @@ def build_sharded_train(
 
     def step(model: nn.Module, opt_state: Any, step: int, batch: Dict):
         with tracing.device_span("train.step", dev) as root:
-            norm_counts = norm.counts()
             params = list(model.parameters())
             batch = _place_batch(batch, mesh, rules, dev)
             with tracing.device_span("train.forward", dev), \
@@ -230,7 +217,7 @@ def build_sharded_train(
                 opt_state = _apply_updates(optimizer, opt_state, params,
                                            grads, master_fp32)
             if root is not None:
-                _annotate(root, step, batch, dev, norm_counts)
+                _annotate(root, step, batch, dev)
         return model, opt_state, step + 1, {"loss": _whole(loss.detach()),
                                              "grad_norm": _whole(gnorm)}
 

@@ -199,11 +199,12 @@ def test_reference_impl_matches_flash_path():
 
 
 def test_cpu_path_counts_no_launches():
-    tattn.reset_launch_counts()
+    _build.reset_launch_counts()
     q, k, v, _ = _inputs(1, 1, 8, 8, 64)
     ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
     tattn.flash_attention(*ts).sum().backward()
-    assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [0, 0, 0]
+    counts = _build.launch_counts()
+    assert [counts[f.__name__] for f in tattn.KERNEL_WRAPPERS] == [0, 0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -219,33 +220,33 @@ def test_cpu_path_counts_no_launches():
 def test_attention_route_by_dtype_and_head_dim(monkeypatch, dtype, head_dim,
                                                hopper):
     """The Hopper kernels for bf16/fp16 at head_dim 64 and 128, the general
-    kernels for anything else; off the CPU each entry point goes to the
-    chosen forward kernel and raises when it cannot be loaded, never
-    falling back to the plain attention. (A meta tensor stands in for the
-    card.)"""
+    kernels for anything else; on the card each entry point goes to the
+    chosen forward kernel and raises when it cannot be launched, never
+    falling back to the plain attention. (A meta tensor, with
+    ``_build.on_card`` taking it, stands in for the card.)"""
     want = tattn.KERNEL_WRAPPERS if hopper else tattn.GENERAL_WRAPPERS
     assert tattn.kernels_for(dtype, head_dim) is want
     assert tattn.hopper_takes(dtype, head_dim) is hopper
 
-    def broken(name, argtypes):
-        raise RuntimeError(f"cannot load {name}")
+    def broken(table, entry, device, *args, name=None):
+        raise RuntimeError(f"cannot launch {entry}")
 
-    monkeypatch.setattr(_build, "load", broken)
-    tattn.reset_launch_counts()
+    monkeypatch.setattr(_build, "on_card", lambda t: True)
+    monkeypatch.setattr(_build, "launch", broken)
+    _build.reset_launch_counts()
     q = torch.empty((1, 2, 8, head_dim), dtype=dtype, device="meta")
     fwd = "flash_fwd" if hopper else "flash_fwd_general"
-    with pytest.raises(RuntimeError, match=f"cannot load {fwd}$"):
+    with pytest.raises(RuntimeError, match=f"cannot launch {fwd}$"):
         tattn.flash_attention(q, q, q)
-    with pytest.raises(RuntimeError, match=f"cannot load {fwd}$"):
+    with pytest.raises(RuntimeError, match=f"cannot launch {fwd}$"):
         tattn.attention_with_lse(q, q, q)
-    assert all(f.launches == 0
-               for f in tattn.KERNEL_WRAPPERS + tattn.GENERAL_WRAPPERS)
+    assert _build.launch_counts() == {}
 
 
 def test_cpu_inputs_launch_no_kernel():
     """fp32 at head_dim 16 on the CPU: the general route's plain versions,
     forward and backward, equal the plain attention; nothing launches."""
-    tattn.reset_launch_counts()
+    _build.reset_launch_counts()
     q, k, v, _ = _inputs(1, 2, 8, 8, 16)
     ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
     refs = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
@@ -259,8 +260,7 @@ def test_cpu_inputs_launch_no_kernel():
     o2, lse = tattn.attention_with_lse(*(t.detach() for t in ts))
     _close(o2, ro.detach())
     assert lse.shape == (1, 2, 8)
-    assert all(f.launches == 0
-               for f in tattn.KERNEL_WRAPPERS + tattn.GENERAL_WRAPPERS)
+    assert _build.launch_counts() == {}
 
 
 # ---------------------------------------------------------------------------
@@ -288,16 +288,20 @@ def test_train_entry_point_refuses_missing_cuda(monkeypatch):
 
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 def test_kernel_path_raises_when_build_fails(monkeypatch, tmp_path, which):
-    """A non-CPU tensor goes to the kernel; when the kernel cannot be
-    built the call raises and never falls back to the plain version."""
+    """A tensor on the card goes to the kernel; when the kernel cannot be
+    built the call raises and never falls back to the plain version. (A
+    meta tensor, with ``_build.on_card`` taking it, stands in for the
+    card.)"""
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_entries", {})
+    monkeypatch.setattr(_build, "on_card", lambda t: True)
 
     def no_nvcc():
         raise RuntimeError("nvcc not found (test)")
 
     monkeypatch.setattr(_build, "nvcc", no_nvcc)
-    tattn.reset_launch_counts()
+    _build.reset_launch_counts()
     q = torch.empty((1, 2, 8, 64), dtype=torch.bfloat16, device="meta")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         if which == "fwd":
@@ -305,20 +309,26 @@ def test_kernel_path_raises_when_build_fails(monkeypatch, tmp_path, which):
         else:
             lse = torch.empty((1, 2, 8), device="meta")
             tattn.flash_bwd_dq(q, q, q, q, lse, lse, True, 0.125)
-    assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [0, 0, 0]
+    assert _build.launch_counts() == {}
 
 
-def test_kernel_path_raises_when_loader_fails(monkeypatch):
-    def broken(name, argtypes):
-        raise RuntimeError(f"cannot load {name}")
-
-    monkeypatch.setattr(_build, "load", broken)
+def test_kernel_path_raises_when_loader_fails(monkeypatch, tmp_path):
+    """A library that builds but cannot be loaded raises; nothing is bound
+    or launched, and nothing falls back. (The build is skipped and the
+    build directory left empty.)"""
+    monkeypatch.setattr(_build, "build", lambda names: dict.fromkeys(names))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "_entries", {})
+    monkeypatch.setattr(_build, "on_card", lambda t: True)
+    _build.reset_launch_counts()
     q = torch.empty((1, 2, 8, 64), dtype=torch.bfloat16, device="meta")
     lse = torch.empty((1, 2, 8), device="meta")
-    with pytest.raises(RuntimeError, match="cannot load flash_fwd"):
+    with pytest.raises(OSError, match=r"flash_fwd-[0-9a-f]{16}\.so"):
         tattn.attention_with_lse(q, q, q)
-    with pytest.raises(RuntimeError, match="cannot load flash_bwd_dkdv"):
+    with pytest.raises(OSError, match=r"flash_\w+-[0-9a-f]{16}\.so"):
         tattn.flash_bwd_dkdv(q, q, q, q, lse, lse, True, 0.125)
+    assert _build._entries == {} and _build.launch_counts() == {}
 
 
 def test_build_keeps_nvcc_log_beside_library(monkeypatch, tmp_path):

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from ray_tpu_torch import device as tdevice
+from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import attention as tattn
 
 
@@ -27,6 +28,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _launches(wrappers):
+    """Launches of each wrapper since ``_build.reset_launch_counts``."""
+    counts = _build.launch_counts()
+    return [counts[f.__name__] for f in wrappers]
 
 
 @pytest.mark.cuda
@@ -50,7 +57,7 @@ def test_cuda_kernels_match_plain(cuda, sq, sk, d, causal, dtype):
                                dtype=dtype)
     q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
     scale = d ** -0.5
-    tattn.reset_launch_counts()
+    _build.reset_launch_counts()
     o, lse = tattn.flash_fwd(q, k, v, causal, scale)
     ro, rlse = tattn.mha_reference_with_lse(q, k, v, causal, scale)
     delta = (do.float() * o.float()).sum(-1)
@@ -65,7 +72,7 @@ def test_cuda_kernels_match_plain(cuda, sq, sk, d, causal, dtype):
         err = (a.float() - r.float()).abs().max() / r.float().abs().max()
         assert err < 2e-2
     assert (lse - rlse).abs().max() < 1e-4
-    assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [1, 1, 1]
+    assert _launches(tattn.KERNEL_WRAPPERS) == [1, 1, 1]
 
 
 @pytest.mark.cuda
@@ -129,15 +136,14 @@ def test_cuda_layer_norm_matches_plain(cuda, rows, d, dtype, pdtype):
     x, scale, bias, dy = _ln_inputs(cuda, rows, d, dtype, pdtype)
     xs = [t.clone().requires_grad_() for t in (x, scale, bias)]
     refs = [t.clone().requires_grad_() for t in (x, scale, bias)]
-    norm.reset_counts()
+    _build.reset_launch_counts()
     y = norm.layer_norm(*xs)
     y.backward(dy)
     ry = norm.layer_norm_reference(*refs)
     ry.backward(dy)
     torch.cuda.synchronize()
-    assert norm.counts() == (2, 0)
-    assert (norm.layer_norm_fwd.launches, norm.layer_norm_bwd.launches) == \
-        (1, 1)
+    assert _build.launch_counts() == {"layer_norm_fwd": 1,
+                                      "layer_norm_bwd": 1}
     assert y.dtype == dtype and xs[0].grad.dtype == dtype
     assert _ln_rel(y, ry) <= LN_TOL[dtype]
     assert _ln_rel(xs[0].grad, refs[0].grad) <= LN_TOL[dtype]
@@ -178,12 +184,14 @@ def test_cuda_gpt2_layer_norms_take_the_kernels(cuda, policy, per_layer):
     model = gpt2.GPT2(cfg, torch.Generator().manual_seed(0)).to(cuda).to(
         torch.bfloat16)
     tokens = torch.randint(0, 512, (2, 129), device=cuda)
-    norm.reset_counts()
+    _build.reset_launch_counts()
     loss = model.loss_fn({"tokens": tokens})
     loss.backward()
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
-    assert norm.counts() == (per_layer * 3 + 2, 0)
+    counts = _build.launch_counts()
+    assert counts["layer_norm_fwd"] + counts["layer_norm_bwd"] == \
+        per_layer * 3 + 2
 
 
 @pytest.mark.cuda
@@ -385,11 +393,11 @@ def test_cuda_remat_kernel_launches(cuda, policy, k1_per_layer):
         tokens = torch.randint(0, 512, (2, 129), device=cuda,
                                generator=torch.Generator(
                                    device=cuda).manual_seed(1))
-        tattn.reset_launch_counts()
+        _build.reset_launch_counts()
         loss = model.loss_fn({"tokens": tokens})
         loss.backward()
         torch.cuda.synchronize()
-        counts = [f.launches for f in tattn.KERNEL_WRAPPERS]
+        counts = _launches(tattn.KERNEL_WRAPPERS)
         expect = [36 * (k1_per_layer if pol == policy else 1), 36, 36]
         assert counts == expect, (pol, counts)
         losses[pol] = loss.item()
@@ -507,14 +515,14 @@ def test_cuda_fp32_llama_runs_the_general_kernels(cuda):
                            generator=torch.Generator().manual_seed(1))
     losses = {}
     for name, model in (("cpu", cpu), ("card", card)):
-        tattn.reset_launch_counts()
+        _build.reset_launch_counts()
         loss = model.loss_fn({"tokens": tokens.to(
             next(model.parameters()).device)})
         loss.backward()
         losses[name] = loss.item()
         n = cfg.num_layers if name == "card" else 0
-        assert [f.launches for f in tattn.GENERAL_WRAPPERS] == [n, n, n]
-        assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [0, 0, 0]
+        assert _launches(tattn.GENERAL_WRAPPERS) == [n, n, n]
+        assert _launches(tattn.KERNEL_WRAPPERS) == [0, 0, 0]
     assert abs(losses["card"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
     for a, b in zip(card.parameters(), cpu.parameters()):
         err = (a.grad.cpu() - b.grad).abs().max()
@@ -558,7 +566,7 @@ def test_cuda_general_kernels_match_plain(cuda, sq, sk, d, causal, dtype,
                                            device=cuda, dtype=dtype), offset)
     q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
     scale = d ** -0.5
-    tattn.reset_launch_counts()
+    _build.reset_launch_counts()
     o, lse = tattn.flash_fwd_general(q, k, v, causal, scale)
     ro, rlse = tattn.mha_reference_with_lse(q, k, v, causal, scale)
     delta = (do.float() * o.float()).sum(-1)
@@ -575,8 +583,8 @@ def test_cuda_general_kernels_match_plain(cuda, sq, sk, d, causal, dtype,
         err = (a.float() - r.float()).abs().max() / r.float().abs().max()
         assert err < tol
     assert (lse - rlse).abs().max() < 1e-4
-    assert [f.launches for f in tattn.GENERAL_WRAPPERS] == [1, 1, 1]
-    assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [0, 0, 0]
+    assert _launches(tattn.GENERAL_WRAPPERS) == [1, 1, 1]
+    assert _launches(tattn.KERNEL_WRAPPERS) == [0, 0, 0]
 
 
 @pytest.mark.cuda
@@ -621,12 +629,12 @@ def test_cuda_tiny_vit_step(cuda):
         got = model(batch["image"].to(cuda)).float().cpu()
         want = ref(batch["image"])
     assert (got - want).abs().max() / want.abs().max() < 5e-2
-    tattn.reset_launch_counts()
+    _build.reset_launch_counts()
     model, opt, n, met = step(model, opt, n, batch)
     torch.cuda.synchronize()
     assert torch.isfinite(met["loss"]) and n == 1
-    assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [4, 2, 2]
-    assert [f.launches for f in tattn.GENERAL_WRAPPERS] == [0, 0, 0]
+    assert _launches(tattn.KERNEL_WRAPPERS) == [4, 2, 2]
+    assert _launches(tattn.GENERAL_WRAPPERS) == [0, 0, 0]
 
 
 @pytest.mark.cuda
@@ -664,13 +672,13 @@ def test_cuda_mesh_of_one_step_matches_build_train(cuda):
         for name, (init, step_fn) in (("sharded", sharded),
                                       ("plain", plain)):
             state = init(0)
-            tattn.reset_launch_counts()
+            _build.reset_launch_counts()
             losses[name] = []
             for _ in range(3):
                 *state, m = step_fn(*state, {"tokens": tokens})
                 losses[name].append(m["loss"].item())
-            assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [6, 6, 6]
-            assert all(f.launches == 0 for f in tattn.GENERAL_WRAPPERS)
+            assert _launches(tattn.KERNEL_WRAPPERS) == [6, 6, 6]
+            assert _launches(tattn.GENERAL_WRAPPERS) == [0, 0, 0]
     finally:
         dist.destroy_process_group()
     assert max(abs(a - b) for a, b in zip(losses["sharded"],
@@ -827,7 +835,7 @@ def test_cuda_ssd_kernels_match_plain(cuda, b, s, h, p, n, chunk):
 
     ins = [t.detach().requires_grad_()
            for t in _ssd_inputs(cuda, b, s, h, p, n)]
-    ssd.reset_counts()
+    _build.reset_launch_counts()
     y = ssd.ssd(*ins, chunk=chunk)
     dy = torch.randn(y.shape, device=cuda,
                      generator=torch.Generator(device=cuda).manual_seed(3))
@@ -844,8 +852,9 @@ def test_cuda_ssd_kernels_match_plain(cuda, b, s, h, p, n, chunk):
         assert err <= TOL_SSD, (name, err.item())
     # The backward makes the entering states again: chunk_state and
     # state_pass twice in it.
-    assert ssd.counts() == {"chunk_state": 3, "state_pass": 3,
-                            "chunk_scan": 2, "chunk_dg": 1, "chunk_bc": 2}
+    assert _build.launch_counts() == {
+        "chunk_state": 3, "state_pass": 3, "chunk_scan": 2, "chunk_dg": 1,
+        "chunk_bc": 2}
 
 
 @pytest.mark.cuda
@@ -906,7 +915,7 @@ def test_cuda_ssd_refuses_what_it_has_no_instantiation_for(cuda):
     heads are not contiguous: ``ssd`` raises before any launch."""
     from ray_tpu_torch.ops import ssd
 
-    ssd.reset_counts()
+    _build.reset_launch_counts()
     for (p, n, chunk) in ((48, 128, 256), (64, 64, 256), (64, 128, 128),
                           (32, 16, 256)):
         x, dt, A, B, C = _ssd_inputs(cuda, 1, 300, 2, p, n)
@@ -918,7 +927,7 @@ def test_cuda_ssd_refuses_what_it_has_no_instantiation_for(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ssd.ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C,
                 256)
-    assert sum(ssd.counts().values()) == 0
+    assert _build.launch_counts() == {}
 
 
 @pytest.mark.cuda
@@ -951,7 +960,7 @@ def test_cuda_granite_step_takes_the_scan_kernels(cuda):
     was = tracer.enabled
     tracer.clear()
     tracing.enable()
-    ssd.reset_counts()
+    _build.reset_launch_counts()
     try:
         *state, met = step(*state, {"tokens": tokens})
         torch.cuda.synchronize()
@@ -961,8 +970,10 @@ def test_cuda_granite_step_takes_the_scan_kernels(cuda):
     spans = [sp for sp in tracer.spans() if sp.name.startswith("ssm.")]
     tracer.clear()
     assert torch.isfinite(met["loss"])
-    assert ssd.counts() == {"chunk_state": 8, "state_pass": 8,
-                            "chunk_scan": 6, "chunk_dg": 2, "chunk_bc": 4}
+    want = {"chunk_state": 8, "state_pass": 8, "chunk_scan": 6,
+            "chunk_dg": 2, "chunk_bc": 4}
+    counts = _build.launch_counts()
+    assert {name: counts[name] for name in want} == want
     assert sorted(sp.name for sp in spans) == ["ssm.backward"] * 2 + [
         "ssm.forward"] * 4
     assert all(sp.attributes["impl"] == "kernel" for sp in spans)

@@ -14,8 +14,6 @@ skip:
     python -m pytest tests/test_torch_general_stub.py -q
 """
 
-import ctypes
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,8 +24,6 @@ from ray_tpu_torch import device as tdevice
 from ray_tpu_torch.ops import attention as tattn
 from torch_stub_build import host_library, host_source
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
 
 @pytest.fixture(autouse=True)
 def _full_fp32():
@@ -35,27 +31,26 @@ def _full_fp32():
         yield
 
 
-def _host_kernel(tmp_path_factory, name, argtypes):
-    return getattr(host_library(tmp_path_factory, name, {name: argtypes}),
-                   name)
+def _host_kernel(tmp_path_factory, name):
+    """The host build of general kernel ``name``, bound as the port binds
+    it."""
+    return getattr(host_library(tmp_path_factory, name,
+                                tattn._GENERAL[name]), name)
 
 
 @pytest.fixture(scope="module")
 def k4(tmp_path_factory):
-    return _host_kernel(tmp_path_factory, "flash_fwd_general",
-                        [_P] * 5 + [_I] * 6 + [_F, _I, _P])
+    return _host_kernel(tmp_path_factory, "flash_fwd_general")
 
 
 @pytest.fixture(scope="module")
 def k5(tmp_path_factory):
-    return _host_kernel(tmp_path_factory, "flash_bwd_dkdv_general",
-                        [_P] * 8 + [_I] * 6 + [_F, _I, _P])
+    return _host_kernel(tmp_path_factory, "flash_bwd_dkdv_general")
 
 
 @pytest.fixture(scope="module")
 def k6(tmp_path_factory):
-    return _host_kernel(tmp_path_factory, "flash_bwd_dq_general",
-                        [_P] * 7 + [_I] * 6 + [_F, _I, _P])
+    return _host_kernel(tmp_path_factory, "flash_bwd_dq_general")
 
 
 def _offset(x: torch.Tensor, elems: int) -> torch.Tensor:

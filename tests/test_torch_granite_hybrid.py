@@ -37,6 +37,7 @@ import torch
 from ray_tpu_torch import device as tdevice
 from ray_tpu_torch.models import granite_hybrid as gh
 from ray_tpu_torch.observability import tracing
+from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import ssd as ssd_mod
 from ray_tpu_torch.parallel import moe
 from ray_tpu_torch.train import optim
@@ -301,7 +302,7 @@ def test_cpu_scans_take_the_plain_path_and_say_so():
     was = tracer.enabled
     tracer.clear()
     tracing.enable()
-    ssd_mod.reset_counts()
+    _build.reset_launch_counts()
     try:
         step(*state, {"tokens": _tokens()})
     finally:
@@ -311,7 +312,7 @@ def test_cpu_scans_take_the_plain_path_and_say_so():
     tracer.clear()
     assert len(scans) == 6
     assert all(s.attributes["impl"] == "plain" for s in scans)
-    assert sum(ssd_mod.counts().values()) == 0
+    assert _build.launch_counts() == {}
 
 
 def _kernel_inputs(b=2, s=300, h=2, p=64, n=128):
@@ -374,9 +375,9 @@ def test_kernel_checks_refuse_before_any_launch(monkeypatch, name, chunk,
                                                 error):
     """What the kernels do not take raises in the wrapper's checks; the
     launch is never reached."""
-    def launch(*args):
+    def launch(*args, **kwargs):
         raise AssertionError("launched")
 
-    monkeypatch.setattr(ssd_mod, "_launch", launch)
+    monkeypatch.setattr(_build, "launch", launch)
     with pytest.raises(error):
         ssd_mod.check_kernel_layout(**_bad(name), chunk=chunk)

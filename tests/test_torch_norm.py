@@ -24,7 +24,8 @@ import torch
 from ray_tpu.models import common as jcommon
 from ray_tpu_torch import device as tdevice
 from ray_tpu_torch.models import common
-from ray_tpu_torch.ops import norm
+from ray_tpu_torch.observability import tracing
+from ray_tpu_torch.ops import _build, norm
 from torch_stub_build import host_library
 
 F32, BF16, FP16 = torch.float32, torch.bfloat16, torch.float16
@@ -38,7 +39,8 @@ def _full_fp32():
 
 @pytest.fixture(scope="module")
 def ln(tmp_path_factory):
-    return host_library(tmp_path_factory, "layer_norm", norm._ARGTYPES)
+    return host_library(tmp_path_factory, "layer_norm",
+                        norm._ENTRIES["layer_norm"])
 
 
 def _offset(x: torch.Tensor, elems: int) -> torch.Tensor:
@@ -227,12 +229,49 @@ def test_plan_takes_elements_for_misaligned_parameters():
 
 
 def test_cpu_tensors_take_the_plain_version_and_are_counted():
+    """The plain version, counted onto the outermost open span of the
+    call's trace (both counts, so a reader sees the share); nothing is
+    launched, and with no span open nothing is counted."""
     x, scale, bias, _ = _inputs(4, 24, BF16, BF16, 3)
-    norm.reset_counts()
-    y = common.layer_norm(x, scale, bias)
+    _build.reset_launch_counts()
+    tracer = tracing.get_tracer()
+    was, tracer.enabled = tracer.enabled, True
+    try:
+        with tracing.span("job") as root, tracing.span("phase") as phase:
+            y = common.layer_norm(x, scale, bias)
+        common.layer_norm(x, scale, bias)
+    finally:
+        tracer.enabled = was
     assert torch.equal(y, norm.layer_norm_reference(x, scale, bias))
-    assert norm.counts() == (0, 1)
+    assert root.attributes == {"norm_kernel_calls": 0, "norm_plain_calls": 1}
+    assert phase.attributes == {}
+    assert _build.launch_counts() == {}
     assert common.layer_norm is norm.layer_norm
+
+
+def test_a_launch_that_returns_an_error_raises_naming_its_entry(
+        ln, monkeypatch):
+    """``_build.launch`` through the host build of the LayerNorm source: a
+    launch returning 0 is counted under its entry; one returning a
+    ``cudaError_t`` (a dtype code the entry does not know) raises with
+    the entry's name and the code, and is not counted."""
+    monkeypatch.setattr(_build, "_libs", {"layer_norm": ln})
+    monkeypatch.setattr(_build, "_entries", {})
+    _build.reset_launch_counts()
+    x, scale, bias, _ = _inputs(4, 24, F32, F32, 3)
+    y = torch.full_like(x, float("nan"))
+    mean, rstd = torch.empty(4), torch.empty(4)
+    vec, row_threads = norm._plan(24, F32, norm.FWD_ELEMS, (x, y),
+                                  (scale, bias))
+    args = (x, scale, bias, y, mean, rstd, 4, 24, row_threads, vec, 1e-5)
+    _build.launch(norm._ENTRIES, "layer_norm_fwd", x.device, *args, 0, 0)
+    assert _rel(y, norm.layer_norm_reference(x, scale, bias)) <= TOL[F32]
+    assert _build.launch_counts() == {"layer_norm_fwd": 1}
+    with pytest.raises(RuntimeError,
+                       match="^layer_norm_fwd launch failed: cudaError 1$"):
+        _build.launch(norm._ENTRIES, "layer_norm_fwd", x.device, *args, 9,
+                      0)
+    assert _build.launch_counts() == {"layer_norm_fwd": 1}
 
 
 def test_the_kernel_wrappers_refuse_what_they_do_not_take():
@@ -242,4 +281,5 @@ def test_the_kernel_wrappers_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="run on CUDA"):
         norm.layer_norm_bwd(dy, x, scale, x[:, 0].float(), x[:, 0].float())
     assert norm.MAX_WIDTH == 4096
-    assert norm._ARGTYPES["layer_norm_fwd"][-1] is ctypes.c_void_p
+    assert norm._ENTRIES["layer_norm"]["layer_norm_fwd"][-1] is \
+        ctypes.c_void_p

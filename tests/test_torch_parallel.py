@@ -180,7 +180,7 @@ def test_constrain_is_identity_without_a_mesh():
 
 def test_concurrent_rank_claims_are_disjoint():
     kv, world, results = tboot.InMemoryKV(), 8, {}
-    barrier = threading.Barrier(world)
+    barrier = threading.Barrier(world, timeout=10)
 
     def host(i):
         bs = tboot.Bootstrap(kv, world_size=world, session="s1")

@@ -24,15 +24,15 @@ TOL = 1e-2
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    return {name: host_library(tmp_path_factory, name,
-                               {entry: ssd._ARGTYPES})
-            for name, entry in ssd._LIBS.items()}
+    return {name: host_library(tmp_path_factory, name, entries)
+            for name, entries in ssd._ENTRIES.items()}
 
 
 @pytest.fixture
 def host_kernels(libs, monkeypatch):
-    monkeypatch.setattr(_build, "load", lambda name, entries: libs[name])
-    monkeypatch.setattr(_build, "has_library", lambda name: True)
+    """The host builds in place of the card's libraries, as loaded."""
+    monkeypatch.setattr(_build, "_libs", dict(libs))
+    monkeypatch.setattr(_build, "_entries", {})
 
 
 def _inputs(b, s, h, p, n, seed=0):
@@ -54,7 +54,7 @@ def _rel(a, b):
 def test_host_build_of_the_kernels_matches_plain(host_kernels, s):
     x, dt, A, B, C = _inputs(1, s, 2, 32, 16)
     ssd.check_kernel_layout(x, dt, A, B, C, 64)
-    ssd.reset_counts()
+    _build.reset_launch_counts()
     y = ssd.ssd_kernel_forward(x, dt, A, B, C, 64)[0]
     refs = [t.float().requires_grad_() for t in (x, dt, A, B, C)]
     want = ssd.ssd_reference(*refs, chunk=64)
@@ -68,5 +68,6 @@ def test_host_build_of_the_kernels_matches_plain(host_kernels, s):
         assert _rel(got, ref) <= TOL, (name, _rel(got, ref))
     # The backward makes the entering states again: chunk_state and
     # state_pass twice in it.
-    assert ssd.counts() == {"chunk_state": 3, "state_pass": 3,
-                            "chunk_scan": 2, "chunk_dg": 1, "chunk_bc": 2}
+    assert _build.launch_counts() == {
+        "chunk_state": 3, "state_pass": 3, "chunk_scan": 2, "chunk_dg": 1,
+        "chunk_bc": 2}

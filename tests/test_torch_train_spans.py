@@ -84,7 +84,11 @@ def test_a_profiled_step_is_one_trace_with_three_phases():
     spans = _by_name(tracing.get_tracer().spans())
     (root,) = spans["train.step"]
     assert root.parent_id is None
-    assert root.attributes == {"step": 0, "tokens": 4 * 33}
+    # On the CPU every LayerNorm call (ln1 and ln2 a layer, lnf) takes the
+    # plain version, and counts itself onto the step.
+    assert root.attributes == {"step": 0, "tokens": 4 * 33,
+                               "norm_kernel_calls": 0,
+                               "norm_plain_calls": 2 * LAYERS + 1}
     for name in PHASES:
         (s,) = spans[name]
         assert (s.trace_id, s.parent_id) == (root.trace_id, root.span_id)
@@ -132,7 +136,7 @@ def test_two_threads_stepping_at_once_keep_their_own_traces(
     _fresh_tracer.enable()
     steps, batches = 3, (2, 5)
     trainers = [_trainer() for _ in batches]
-    barrier = threading.Barrier(len(batches))
+    barrier = threading.Barrier(len(batches), timeout=60)
     errors = []
 
     def run(i):
@@ -173,6 +177,79 @@ def test_two_threads_stepping_at_once_keep_their_own_traces(
     assert sorted(seen) == sorted(list(batches) * steps)
 
 
+def test_steps_in_two_threads_count_only_their_own_layer_norm_calls(
+        _fresh_tracer):
+    """Two steps of ``build_train`` in flight at once, one a thread, on
+    models of 1 and 3 layers: each ``train.step`` span carries the
+    LayerNorm calls of its own step (ln1 and ln2 a layer and lnf, all
+    plain on the CPU), not the other's. A barrier in the loss holds both
+    forwards' calls made before either step ends."""
+    _fresh_tracer.enable()
+    layers = (1, 3)
+    barrier = threading.Barrier(len(layers))
+
+    def loss(m, b):
+        out = m.loss_fn(b)
+        barrier.wait(60)
+        return out
+
+    trainers = []
+    for n in layers:
+        cfg = gpt2.GPT2Config(**dict(TINY, num_layers=n),
+                              dtype=torch.float32)
+        init, step = build_train(lambda g, cfg=cfg: gpt2.GPT2(cfg), loss,
+                                 optim.adafactor(1e-3), device="cpu")
+        trainers.append((init(0), step))
+    errors = []
+
+    def run(i):
+        try:
+            state, step = trainers[i]
+            for j in range(2):
+                *state, _ = step(*state, {"tokens": _tokens(seed=j)})
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(layers))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    roots = _fresh_tracer.spans("train.step")
+    assert len(roots) == 2 * len(layers)
+    got = []
+    for root in roots:
+        n = sum(s.trace_id == root.trace_id
+                for s in _fresh_tracer.spans("attn.forward"))
+        got.append(n)
+        assert root.attributes["norm_plain_calls"] == 2 * n + 1, n
+        assert root.attributes["norm_kernel_calls"] == 0
+    assert sorted(got) == [1, 1, 3, 3]
+
+
+def test_count_adds_to_the_outermost_open_span_of_a_trace(_fresh_tracer):
+    """``tracing.count``: onto the thread's trace, or a trace given by id
+    from another thread; a no-op, returning None, where no span of the
+    trace is open."""
+    _fresh_tracer.enable()
+    assert tracing.count({"n": 1}) is None
+    with tracing.device_span("root", None) as root, \
+            tracing.device_span("phase", None) as phase:
+        assert tracing.count({"n": 1, "m": 0}) == root.trace_id
+        t = threading.Thread(target=tracing.count,
+                             args=({"n": 2}, root.trace_id))
+        t.start()
+        t.join(60)
+        assert not t.is_alive()
+    assert root.attributes == {"n": 3, "m": 0}
+    assert phase.attributes == {}
+    assert tracing.count({"n": 1}, root.trace_id) is None
+    assert root.attributes == {"n": 3, "m": 0}
+
+
 def test_a_span_on_another_thread_joins_its_trace_innermost_open_span(
         _fresh_tracer):
     """What the attention backward does on autograd's CUDA worker thread:
@@ -193,7 +270,8 @@ def test_a_span_on_another_thread_joins_its_trace_innermost_open_span(
         for key, trace in (("a", a.trace_id), ("b", b.trace_id)):
             t = threading.Thread(target=worker, args=(key, trace))
             t.start()
-            t.join()
+            t.join(60)
+            assert not t.is_alive()
     assert found["a"] == (a.trace_id, a_phase.span_id)
     assert found["b"] == (b.trace_id, None)  # b had closed
     assert _fresh_tracer._open == {}

@@ -77,7 +77,8 @@ def _both(run):
     for th in threads:
         th.start()
     for th in threads:
-        th.join()
+        th.join(300)
+    assert not any(th.is_alive() for th in threads), "a sweep still runs"
     if errors:
         raise errors[0]
     return out["jax"], out["torch"]

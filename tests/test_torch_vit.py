@@ -23,7 +23,7 @@ from ray_tpu_torch.models import vit as tvit
 from ray_tpu_torch.models.common import param_count
 from ray_tpu_torch.models.convert import (vit_params_from_numpy,
                                           vit_tree_to_numpy)
-from ray_tpu_torch.ops import attention as tattn
+from ray_tpu_torch.ops import _build
 
 TINY = dict(image_size=32, patch_size=8, num_layers=2, num_heads=2,
             d_model=32, d_mlp=64, num_classes=10)
@@ -88,7 +88,7 @@ def test_forward_loss_and_grads_match_jax(remat):
 
     jloss, jgrads = jax.value_and_grad(
         lambda p: jvit.loss_fn(p, batch, jcfg))(params)
-    tattn.reset_launch_counts()
+    _build.reset_launch_counts()
     loss = model.loss_fn({"image": torch.from_numpy(images),
                           "label": torch.from_numpy(labels)})
     loss.backward()
@@ -105,8 +105,7 @@ def test_forward_loss_and_grads_match_jax(remat):
         err = np.abs(tg - jg).max()
         assert err <= 1e-4 * np.abs(jg).max() + 1e-9, (keys, err)
     # The CPU runs the plain versions: no kernel launched.
-    assert [f.launches for f in tattn.KERNEL_WRAPPERS] == [0, 0, 0]
-    assert [f.launches for f in tattn.GENERAL_WRAPPERS] == [0, 0, 0]
+    assert _build.launch_counts() == {}
 
 
 def test_remat_is_one_checkpoint_per_block():
