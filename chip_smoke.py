@@ -41,7 +41,10 @@ Phases; any failure exits non-zero:
      (layers 0-9, experts 0-7 of 72 held; bf16, adafactor(1e-4), batch 8
      x S 8192) with the launch counters reset just before: a finite first
      loss within 1 of ln(vocab), K1 twice (the forward and the layer's
-     recompute) and K2, K3 once an attention layer, no general kernel;
+     recompute) and K2, K3 once an attention layer, no general kernel,
+     and the RMSNorm kernels' launches (4L + 1 plain forward, 2L + 1
+     backward; the gated form twice forward and once backward a Mamba
+     layer);
   4. after a second of warm-up, times each kernel at the GPT-2 shape
      (device time per call, from torch.profiler) beside its plain
      version, its bound from the data-sheet peaks, and
@@ -72,6 +75,20 @@ Phases; any failure exits non-zero:
      instantiations' registers and spills; phase 3d's step requires each
      Mamba layer's launches (forward, recompute, and the backward's own
      chunk_state and state_pass forward before its five kernels);
+  4d. holds the RMSNorm kernels (ops/norm.py, csrc/rms_norm.cu; through
+     autograd) against the plain versions' fp32 autograd at the
+     granite-4.0-h-small cell's shapes: the plain form at [65536,4096]
+     bf16 (the output, dx, dscale) and the gated form with its skip at
+     [65536,8192] (y fp32, x and z bf16 read at the mixer's row strides
+     8448 and 16768; the output and the gradients of y, x, D, z and the
+     scale), within TOL_NORM; then times each forward and backward
+     (device time) beside its bound (bytes read once and written once
+     over the data sheet's bandwidth) and the plain composite, prints
+     the instantiations' registers and spills (those the cell runs,
+     bf16 with 16-byte vectors, may not spill, but the gated backward's
+     few words), and prices a Granite step's calls as phase 3d's step counted them (each
+     of 10 layers' two plain norms forward, recomputed and backward, the
+     final norm, and the 9 Mamba layers' gated norm likewise);
   5. checks a tiny GPT-2 training step through the kernels against the
      same step through the plain attention, then trains gpt2-124m (bf16,
      fp32 master, adamw_lowmem, batch 8, seq 1024) for 2 + 5 steps with
@@ -426,6 +443,11 @@ def ptxas_report(log):
                 out[inst] = dict(registers=None, smem_static=0,
                                  spill_stores=0, spill_loads=0)
                 continue
+            if "3rms" in name:  # rtt::rms (RMSNorm): kernel and types
+                inst = rms_instance(name)
+                out[inst] = dict(registers=None, smem_static=0,
+                                 spill_stores=0, spill_loads=0)
+                continue
             if "3ssd" in name:  # rtt::ssd (the scan): kernel, (p, n, chunk)
                 inst = ssd_instance(name)
                 out[inst] = dict(registers=None, smem_static=0,
@@ -475,6 +497,37 @@ def ssd_instance(mangled):
         ("dc" if flag.group(1) == "1" else "db") if kernel == "chunk_bc"
         else ("fwd" if flag.group(1) == "1" else "bwd"))
     return "_".join([kernel] + dims) + mode
+
+
+def rms_instance(mangled):
+    """An RMSNorm kernel's instantiation from its mangled name, as
+    ``rms_fwd_bf16_bf16_v8_gated``: the kernel, the input's and the
+    parameters' types, the vector width and the form (rms_bwd_cols: the
+    parameters' type alone)."""
+    m = re.search(r"3rms(\d+)(\w+)", mangled)
+    if m is None:
+        return mangled
+    kernel, rest = m.group(2)[:int(m.group(1))], m.group(2)[int(m.group(1)):]
+    names = {"__nv_bfloat16": "bf16", "__half": "fp16"}
+    types, i = [], 1  # past the "I" of the template arguments
+    while i < len(rest) and rest[i] not in "LE":
+        if rest[i] == "f":
+            types.append("fp32")
+            i += 1
+        elif rest[i] == "S":  # a substitution: the first type again
+            types.append(types[0])
+            i = rest.index("_", i) + 1
+        else:
+            n = re.match(r"\d+", rest[i:]).group()
+            i += len(n)
+            types.append(names[rest[i:i + int(n)]])
+            i += int(n)
+    vec = re.search(r"Li(\d+)E", rest)
+    form = re.search(r"Lb(\d)E", rest)
+    return "_".join([kernel] + types
+                    + ([f"v{vec.group(1)}"] if vec else [])
+                    + ([("gated" if form.group(1) == "1" else "plain")]
+                       if form else []))
 
 
 def rel_err(a, ref):
@@ -741,6 +794,11 @@ def main(argv):
     t0 = time.perf_counter()
     ssd_time = ssd_phase(torch, gen, ptxas)
     print(f"phase 4c (scan): {time.perf_counter() - t0:.3f} s wall")
+
+    # -- 4d. the RMSNorm kernels at the Granite cell's shapes ---------------
+    t0 = time.perf_counter()
+    rms_time = rms_phase(torch, gen, ptxas, granite["rms_launches"])
+    print(f"phase 4d (RMSNorm): {time.perf_counter() - t0:.3f} s wall")
 
     # -- 5a. tiny GPT-2 step: kernels against the plain attention ------------
     tiny = dict(vocab_size=512, max_seq=128, num_layers=2, num_heads=2,
@@ -1012,6 +1070,12 @@ def main(argv):
         ptxas={lib: ptxas[lib] for lib in ("ssd_state", "ssd_scan",
                                            "ssd_grad")},
         at=ssd_time, launches_granite_per_step=granite["ssd_launches"]))
+    kernels.append(dict(
+        name="rms_norm", route="cuda",
+        source="ray_tpu_torch/ops/csrc/rms_norm.cu",
+        replaces="none: XLA fuses ray_tpu/models/common.py rms_norm",
+        ptxas=ptxas["rms_norm"], at=rms_time,
+        launches_granite_per_step=granite["rms_launches"]))
     for cell, calls in (
             ("gpt2-1.5b.s1024-b16", train_15b["layer_norm_calls"]),
             ("gpt2-355m.s16384-b4", long_ctx[16384]["layer_norm_calls"])):
@@ -2978,6 +3042,177 @@ def ssd_phase(torch, gen, ptxas):
     return out
 
 
+# The granite-4.0-h-small cell's RMSNorm shapes: the plain form's rows of
+# the hidden size, the gated form's of the mixer's heads x head size, with
+# x and z at the row strides the mixer's splits leave (d + 2 n and
+# 2 d + 2 n + heads).
+RMS_ROWS, RMS_D, RMS_GATED = 65536, 4096, (128, 64, 128)
+
+
+def RMS_WRAPPERS():
+    """The RMSNorm kernels' wrappers, whose names count their launches."""
+    from ray_tpu_torch.ops import norm
+
+    return (norm.rms_norm_fwd, norm.rms_norm_bwd, norm.gated_rms_norm_fwd,
+            norm.gated_rms_norm_bwd)
+
+
+def rms_phase(torch, gen, ptxas, granite_launches):
+    """Phase 4d: the RMSNorm kernels at the Granite cell's shapes against
+    the plain versions' fp32 autograd (the output and every gradient
+    within TOL_NORM of its largest entry; one launch each way), then each
+    forward and backward timed (device time) beside its bound by bytes
+    and the plain composite (the models' path before the kernels; its
+    backward through autograd), the instantiations' registers and spills
+    (those the cell runs, bf16 with 16-byte vectors, may not spill, but
+    the gated backward's few words), and a Granite step's calls (``granite_launches``,
+    counted by phase 3d) priced both ways."""
+    from ray_tpu_torch.ops import norm
+
+    dev, bf, eps = gen.device, torch.bfloat16, 1e-5
+    rows, d = RMS_ROWS, RMS_D
+    heads, p, n = RMS_GATED
+    dg = heads * p
+
+    def rand(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def check(label, fn, ref, leaves, dout):
+        """fn and ref's outputs and gradients of ``leaves``: fn on them,
+        ref on fp32 copies; returns the relative errors."""
+        reset_launches()
+        xs = [t.detach().requires_grad_() for t in leaves]
+        got = fn(*xs)
+        grads = torch.autograd.grad(got, xs, dout)
+        counts = {k: v for k, v in launch_counts(RMS_WRAPPERS()).items()
+                  if v}
+        refs = [t.detach().float().requires_grad_() for t in leaves]
+        want = ref(*refs)
+        wgrads = torch.autograd.grad(want, refs, dout.float())
+        torch.cuda.synchronize()
+        errs = [rel_err(got, want)] + [rel_err(a, b)
+                                       for a, b in zip(grads, wgrads)]
+        print(f"check {label} vs fp32 plain autograd (output, then each "
+              f"input's gradient): rel " + ", ".join(f"{e:.3e}" for e in errs)
+              + f" (tol {TOL_NORM}); launches {counts}")
+        require(max(errs) <= TOL_NORM, f"{label} vs plain")
+        require(sorted(counts.values()) == [1, 1], f"{label} launches")
+        return errs
+
+    out = {}
+    x, dout = rand(rows, d), rand(rows, d)
+    scale = (1 + 0.1 * rand(d, dtype=torch.float32)).to(bf)
+    errs = check(f"rms_norm [{rows},{d}] bf16",
+                 lambda *a: norm.rms_norm(*a, eps),
+                 lambda *a: norm.rms_norm_reference(*a, eps), (x, scale),
+                 dout)
+    _, rstd = norm.rms_norm_fwd(x, scale, eps)
+    leaves = [t.detach().requires_grad_() for t in (x, scale)]
+    composite = norm.rms_norm_reference(*leaves, eps)
+    elem = rows * d * 2
+    ways = {
+        "forward": dict(fn=lambda: norm.rms_norm_fwd(x, scale, eps),
+                        plain=lambda: norm.rms_norm_reference(x, scale, eps),
+                        nbytes=2 * elem + rows * 4 + d * 2),
+        "backward": dict(
+            fn=lambda: norm.rms_norm_bwd(dout, x, scale, rstd),
+            plain=lambda: torch.autograd.grad(composite, leaves, dout,
+                                              retain_graph=True),
+            nbytes=3 * elem + rows * 4 + 2 * d * 2)}
+    out["plain"] = rms_times(torch, f"rms_norm [{rows},{d}] bf16", ways,
+                             dict(shape=[rows, d], errs=errs))
+    del x, dout, scale, rstd, leaves, composite, ways
+    torch.cuda.empty_cache()
+
+    # The mixer's layout: z the first d of in_proj's row, x the first d of
+    # the conv's; y the scan's fp32 output.
+    proj = rand(rows, 2 * dg + 2 * n + heads)
+    xbc = rand(rows, dg + 2 * n)
+    z, x = proj[:, :dg], xbc[:, :dg]
+    y = rand(rows, dg, dtype=torch.float32)
+    D = (1 + 0.1 * rand(heads, dtype=torch.float32)).to(bf)
+    scale = (1 + 0.1 * rand(dg, dtype=torch.float32)).to(bf)
+    dout = rand(rows, dg)
+
+    def gated(y, x, D, z, scale):
+        return norm.gated_rms_norm(y, x.unflatten(-1, (heads, p)), D, z,
+                                   scale, eps)
+
+    def gated_ref(y, x, D, z, scale):
+        return norm.gated_rms_norm_reference(
+            y.unflatten(-1, (heads, p)), x.unflatten(-1, (heads, p)), D, z,
+            scale, eps)
+
+    errs = check(f"gated_rms_norm [{rows},{dg}] (y fp32; x, z bf16 at row "
+                 f"strides {x.stride(0)}, {z.stride(0)})", gated, gated_ref,
+                 (y, x, D, z, scale), dout)
+    _, rstd = norm.gated_rms_norm_fwd(y, x, D, z, scale, eps)
+    leaves = [t.detach().requires_grad_() for t in (y, x, D, z, scale)]
+    composite = gated_ref(*leaves)
+    elem = rows * dg
+    ways = {
+        "forward": dict(
+            fn=lambda: norm.gated_rms_norm_fwd(y, x, D, z, scale, eps),
+            plain=lambda: gated_ref(y, x, D, z, scale),
+            nbytes=10 * elem + rows * 4 + dg * 2 + heads * 2),
+        "backward": dict(
+            fn=lambda: norm.gated_rms_norm_bwd(dout, y, x, D, z, scale,
+                                               rstd),
+            plain=lambda: torch.autograd.grad(composite, leaves, dout,
+                                              retain_graph=True),
+            nbytes=18 * elem + rows * 4 + 2 * (dg + heads) * 2)}
+    out["gated"] = rms_times(torch, f"gated_rms_norm [{rows},{dg}]", ways,
+                             dict(shape=[rows, dg], errs=errs))
+    del proj, xbc, z, x, y, D, scale, dout, rstd, leaves, composite, ways
+    torch.cuda.empty_cache()
+
+    # The instantiations the Granite cell runs (bf16 inputs and parameters,
+    # 16-byte vectors) may not spill, but for the gated backward: it holds
+    # 16 elements of four inputs a thread across the row's sum at 128
+    # registers and spills a few words (PERF.md §6). The rest are printed.
+    spills = []
+    for inst, r in ptxas["rms_norm"].items():
+        print(f"ptxas rms_norm {inst}: {r['registers']} registers, spill "
+              f"stores {r['spill_stores']} loads {r['spill_loads']}")
+        if ("bf16_bf16_v8" in inst or "cols" in inst) and (
+                r["spill_stores"] or r["spill_loads"]) and \
+                inst != "rms_bwd_bf16_bf16_v8_gated":
+            spills.append(inst)
+    require(not spills, f"RMSNorm instantiations spill: {spills}")
+    calls = {"plain": (granite_launches["rms_norm_fwd"],
+                       granite_launches["rms_norm_bwd"]),
+             "gated": (granite_launches["gated_rms_norm_fwd"],
+                       granite_launches["gated_rms_norm_bwd"])}
+    step = {key: sum(calls[form][i] * out[form][way][key]
+                     for form in calls
+                     for i, way in enumerate(("forward", "backward")))
+            for key in ("ms", "plain_ms", "bound_ms")}
+    print(f"rms_norm a step of granite-4.0-h-small.s8192-b8 at its shapes: "
+          f"plain {calls['plain']} and gated {calls['gated']} (forward, "
+          f"backward) launches as phase 3d counted them: kernels "
+          f"{step['ms']:.2f} ms, plain composites {step['plain_ms']:.2f} ms,"
+          f" bound {step['bound_ms']:.2f} ms")
+    out["granite_step"] = dict(calls=calls, **step)
+    return out
+
+
+def rms_times(torch, label, ways, out):
+    """Each way of ``ways`` ({way: fn, plain, nbytes}) timed: device time
+    a call of the kernel and of the plain composite, beside the bound by
+    bytes; ``out`` with {way: ...} added."""
+    for way, r in ways.items():
+        ms = time_ms(torch, r["fn"])
+        plain_ms = time_ms(torch, r["plain"], warmup=1, reps=5)
+        b_ms, _ = bound(0, r["nbytes"])
+        out[way] = dict(ms=ms, bound_ms=b_ms, plain_ms=plain_ms,
+                        pct_of_bound=100 * b_ms / ms, mb=r["nbytes"] / 1e6)
+        print(f"time {label} {way}: {ms:.4f} ms; bound {b_ms:.4f} ms by "
+              f"bytes ({r['nbytes'] / 1e6:.1f} MB, {100 * b_ms / ms:.1f}% "
+              f"of bound); plain composite {plain_ms:.4f} ms "
+              f"({plain_ms / ms:.1f}x)")
+    return out
+
+
 def layer_norm_calls(label, n, layers=None, recompute=False):
     """The LayerNorm kernels' launches a step, forward and backward, over
     the ``n`` steps since ``reset_launches()``. Given ``layers``, requires
@@ -3164,10 +3399,22 @@ def granite_phase(torch, A, gen):
           f": each of {n_mamba} Mamba layers forward, recomputed and "
           f"backward)")
     require(ssd_launches == ssd_expect, "granite scan launch counts")
+    n_layers = cfg.num_hidden_layers
+    rms_expect = {"rms_norm_fwd": 4 * n_layers + 1,
+                  "rms_norm_bwd": 2 * n_layers + 1,
+                  "gated_rms_norm_fwd": 2 * n_mamba,
+                  "gated_rms_norm_bwd": n_mamba}
+    rms_launches = launch_counts(RMS_WRAPPERS())
+    print(f"granite step: RMSNorm launches {rms_launches} (expect "
+          f"{rms_expect}: each of {n_layers} layers' input and post norms "
+          f"forward, recomputed and backward, the final norm, and each of "
+          f"{n_mamba} Mamba layers' gated norm likewise)")
+    require(rms_launches == rms_expect, "granite RMSNorm launch counts")
     del model, opt_state, tokens, met
     torch.cuda.empty_cache()
     print(f"phase 3d (granite): {time.perf_counter() - t_phase:.3f} s wall")
     return dict(launches=step_launches, ssd_launches=ssd_launches,
+                rms_launches=rms_launches,
                 errs={"flash_fwd": e["o"],
                       "flash_bwd_dkdv": max(e["dk"], e["dv"]),
                       "flash_bwd_dq": e["dq"]})

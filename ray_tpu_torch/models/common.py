@@ -15,9 +15,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-# LayerNorm in fp32, returned in x's dtype: the CUDA kernels for tensors on
-# a card, the plain composite on the CPU and for DTensors.
-from ..ops.norm import layer_norm  # noqa: F401
+# LayerNorm and RMSNorm in fp32, returned in x's dtype: the CUDA kernels for
+# tensors on a card, the plain composites on the CPU and for DTensors.
+from ..ops.norm import layer_norm, rms_norm  # noqa: F401
 
 
 def truncated_normal(shape, generator: Optional[torch.Generator] = None,
@@ -50,12 +50,6 @@ def cast_floating(tree, dtype: torch.dtype):
     if isinstance(tree, (list, tuple)):
         return type(tree)(cast_floating(v, dtype) for v in tree)
     return tree.to(dtype) if tree.is_floating_point() else tree
-
-
-def rms_norm(x, scale, eps: float = 1e-6):
-    xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def cross_entropy_sums(logits, targets, ignore_id: int = -1

@@ -18,7 +18,8 @@ code (``GraniteMoeHybridForCausalLM`` and its parts):
   conv of width ``mamba_d_conv`` with bias over xBC, then SiLU, split into
   x, B and C; ``dt = softplus(dt + dt_bias)``, ``A = -exp(A_log)``; the
   SSD scan (``ops.ssd``) plus the skip ``D x``; the gated RMSNorm
-  ``rms_norm(y * silu(z))``; ``out_proj``;
+  ``rms_norm(y * silu(z))`` (skip, gate and norm in one
+  ``ops.norm.gated_rms_norm``, on a card its kernels); ``out_proj``;
 - attention: q, k, v projections without bias, no rotation
   (``position_embedding_type`` "nope"), query head h reading KV head
   h // (heads / KV heads), causal, scores scaled by
@@ -70,6 +71,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import default_device
 from ..observability import tracing
 from ..ops.attention import attention
+from ..ops.norm import gated_rms_norm
 from ..ops.ssd import ssd
 from ..parallel.moe import moe_dropless
 from .common import chunked_cross_entropy, expand_kv_heads, rms_norm
@@ -212,10 +214,8 @@ class MambaMixer(nn.Module):
         dt = F.softplus(dt.float() + self.dt_bias.float())
         A = -torch.exp(self.A_log.float())
         y = ssd(x, dt, A, B, C, cfg.mamba_chunk_size)
-        y = y + self.D.float()[:, None] * x.float()
-        y = rms_norm(y.flatten(2) * F.silu(z.float()), self.norm,
-                     cfg.rms_norm_eps)
-        return y.to(h.dtype) @ self.out_proj
+        return gated_rms_norm(y, x, self.D, z, self.norm,
+                              cfg.rms_norm_eps) @ self.out_proj
 
 
 class Attention(nn.Module):

@@ -36,7 +36,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd_general",
            "flash_bwd_dkdv_general", "flash_bwd_dq_general", "layer_norm",
-           "ssd_state", "ssd_scan", "ssd_grad")
+           "rms_norm", "ssd_state", "ssd_scan", "ssd_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -356,13 +356,16 @@ def test_every_kernel_is_built_on_the_hopper_header():
     and 128) includes csrc/general.cuh; the LayerNorm source (its own
     group: no products) includes neither; the Mamba-2 scan's sources (their
     own group) include csrc/ssd.cuh, whose products are mma.sync; no other
-    source has mma.sync, and those are the only headers."""
+    source has mma.sync, and those are the only headers. The RMSNorm
+    source is in LayerNorm's group."""
     hopper = {f.__name__ for f in tattn.KERNEL_WRAPPERS}
     general = {f.__name__ for f in tattn.GENERAL_WRAPPERS}
-    norm = {"layer_norm"}
+    norm = {"layer_norm": ("layer_norm_fwd", "layer_norm_bwd"),
+            "rms_norm": ("rms_norm_fwd", "rms_norm_bwd",
+                         "gated_rms_norm_fwd", "gated_rms_norm_bwd")}
     scan = {"ssd_state", "ssd_scan", "ssd_grad"}
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == \
-        hopper | general | norm | scan
+        hopper | general | set(norm) | scan
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
         assert "mma.sync" not in text, src.name
@@ -377,7 +380,7 @@ def test_every_kernel_is_built_on_the_hopper_header():
             assert f'extern "C" int {src.stem}_launch(' in text, src.name
         else:
             assert ".cuh" not in text and "wgmma" not in text, src.name
-            for entry in ("layer_norm_fwd", "layer_norm_bwd"):
+            for entry in norm[src.stem]:
                 assert f'extern "C" int {entry}(' in text, entry
     for header in ("hopper.cuh", "general.cuh"):
         assert "mma.sync" not in (_build.CSRC / header).read_text(), header

@@ -315,6 +315,35 @@ def test_cpu_scans_take_the_plain_path_and_say_so():
     assert _build.launch_counts() == {}
 
 
+def test_cpu_norms_take_the_plain_versions_and_are_counted():
+    """CPU tensors take both RMSNorm forms' plain versions, and a traced
+    step counts each call on ``train.step``: the input and post norms of
+    every layer and the gated norm of every Mamba layer, each in the
+    forward and the recompute, and the final norm."""
+    model = _model()
+    init, step = build_train(lambda _g: model, lambda m, b: m.loss_fn(b),
+                             optim.adafactor(LR), device="cpu")
+    state = init(0)
+    tracer = tracing.get_tracer()
+    was = tracer.enabled
+    tracer.clear()
+    tracing.enable()
+    _build.reset_launch_counts()
+    try:
+        step(*state, {"tokens": _tokens()})
+    finally:
+        if not was:
+            tracer.disable()
+    root = [s for s in tracer.spans() if s.name == "train.step"][-1]
+    tracer.clear()
+    layers = len(CONF["layer_types"])
+    mamba = CONF["layer_types"].count("mamba")
+    assert root.attributes["rms_norm_plain_calls"] == \
+        2 * 2 * layers + 1 + 2 * mamba
+    assert root.attributes["rms_norm_kernel_calls"] == 0
+    assert _build.launch_counts() == {}
+
+
 def _kernel_inputs(b=2, s=300, h=2, p=64, n=128):
     """The mixer's layout: x, B and C split from one bf16 row a position."""
     xbc = torch.zeros(b, s, h * p + 2 * n, dtype=torch.bfloat16)
